@@ -1,0 +1,181 @@
+// Shared pieces of the 3x3x3 conv + InstanceNorm-moment kernels
+// (conv3x3_stats.cu, conv3x3_s2_stats.cu): the bf16 tensor-core MMA, the
+// epilogue that rounds the output to bf16 and folds it into per-block
+// moment partials, and the second pass that reduces those partials.
+//
+// Moments are deterministic: each block writes its per-channel partial sums
+// to a scratch slot of its own (fixed-order in-block reduction: per-thread
+// sums, an xor-butterfly over the 8 row lanes, then warps summed in index
+// order), and reduce_moments sums the slots of one (sample, channel) in a
+// fixed order. No float atomics, so a run gives the same bits every time.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace convk {
+
+typedef __nv_bfloat16 bf16;
+
+__host__ __device__ constexpr int round_up(int v, int m) { return (v + m - 1) / m * m; }
+
+__device__ __forceinline__ uint32_t ld32(const bf16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// D = A(16x16, row) * B(16x8, col) + D with bf16 inputs and f32 accumulators.
+// Fragment ownership (g = lane / 4, t = lane % 4):
+//   a[0]: A[g][2t..2t+1]   a[1]: A[g+8][2t..2t+1]
+//   a[2]: A[g][2t+8..+9]   a[3]: A[g+8][2t+8..+9]
+//   b[0]: B[2t..2t+1][g]   b[1]: B[2t+8..+9][g]
+//   c[0..1]: C[g][2t..2t+1]   c[2..3]: C[g+8][2t..2t+1]
+__device__ __forceinline__ void mma_16816(float (&c)[4], const uint32_t (&a)[4],
+                                          const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// Stage one KC-channel chunk of the input halo into shared memory, channel
+// innermost: xs[((kd * XR + row) * XC + col) * XS + ci] =
+// x[b, d0 + kd, c0 + ci, h0 + row, w0 + col], zero outside the extent and
+// past channel C (the SAME / stride-2 padding and the channel padding).
+// Consecutive threads read consecutive w (coalesced). Each thread issues U
+// independent loads before it stores any: a load-then-store loop leaves one
+// load in flight per thread and is latency-bound.
+template <int NTHREADS, int KC, int XR, int XC, int XS>
+__device__ __forceinline__ void stage_halo(bf16* __restrict__ xs, const bf16* __restrict__ xb,
+                                           int D, int C, int H, int W, int d0, int h0,
+                                           int w0, int c0) {
+  constexpr int PLANE = XR * XC;  // (row, col) positions per (kd, ci)
+  constexpr int NX = 3 * KC * PLANE;
+  constexpr int U = 8;
+  const int64_t HW = (int64_t)H * W;
+  const bf16 zero = __ushort_as_bfloat16((unsigned short)0);
+  for (int base = threadIdx.x; base < NX; base += NTHREADS * U) {
+    bf16 v[U];
+    int off[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int e = base + u * NTHREADS;
+      const int q = e / PLANE, p = e - q * PLANE;  // q = kd * KC + ci
+      const int row = p / XC, col = p - row * XC;
+      const int kd = q / KC, ci = q - kd * KC;
+      const int dd = d0 + kd, hh = h0 + row, ww = w0 + col, cc = c0 + ci;
+      off[u] = e < NX ? ((kd * XR + row) * XC + col) * XS + ci : -1;
+      v[u] = zero;
+      if (e < NX && (unsigned)dd < (unsigned)D && (unsigned)hh < (unsigned)H &&
+          (unsigned)ww < (unsigned)W && cc < C)
+        v[u] = xb[((int64_t)dd * C + cc) * HW + (int64_t)hh * W + ww];
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+      if (off[u] >= 0) xs[off[u]] = v[u];
+  }
+}
+
+// Store one warp's (MT*16 w) x (NT*8 cout) accumulator tile of output row h
+// as bf16, and fold the ROUNDED values into the block's moment partials.
+// Every thread of the block must call it (it holds a __syncthreads).
+//   ybase: y at (b, d, channel 0, 0, 0); channel stride HWo, row stride Wo.
+//   partial slot of channel co0 + j: psum[pbase + j * nblk].
+template <int MT, int NT, int NWARPS>
+__device__ __forceinline__ void store_tile_and_moments(
+    const float (&acc)[MT][NT][4], bf16* __restrict__ ybase, int64_t HWo, int Wo,
+    int h, bool h_ok, int w0, int co0, int Cout,
+    float (*red_s)[NT * 8], float (*red_q)[NT * 8],
+    float* __restrict__ psum, float* __restrict__ psq, int64_t pbase, int64_t nblk) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  float s[NT][2], q[NT][2];
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+    s[nt][0] = s[nt][1] = q[nt][0] = q[nt][1] = 0.f;
+  }
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int w = w0 + mt * 16 + g + (r >= 2 ? 8 : 0);
+        const int co = co0 + nt * 8 + 2 * t + (r & 1);
+        if (h_ok && w < Wo && co < Cout) {
+          const bf16 v = __float2bfloat16_rn(acc[mt][nt][r]);
+          ybase[(int64_t)co * HWo + (int64_t)h * Wo + w] = v;
+          const float f = __bfloat162float(v);
+          s[nt][r & 1] += f;
+          q[nt][r & 1] += f * f;
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+#pragma unroll
+      for (int off = 4; off < 32; off <<= 1) {
+        s[nt][j] += __shfl_xor_sync(0xffffffffu, s[nt][j], off);
+        q[nt][j] += __shfl_xor_sync(0xffffffffu, q[nt][j], off);
+      }
+    }
+  }
+  if (g == 0) {
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        red_s[warp][nt * 8 + 2 * t + j] = s[nt][j];
+        red_q[warp][nt * 8 + 2 * t + j] = q[nt][j];
+      }
+    }
+  }
+  __syncthreads();
+  if (threadIdx.x < NT * 8) {
+    float ts = 0.f, tq = 0.f;
+#pragma unroll
+    for (int wp = 0; wp < NWARPS; ++wp) {
+      ts += red_s[wp][threadIdx.x];
+      tq += red_q[wp][threadIdx.x];
+    }
+    psum[pbase + (int64_t)threadIdx.x * nblk] = ts;
+    psq[pbase + (int64_t)threadIdx.x * nblk] = tq;
+  }
+}
+
+// Second pass: sums[b, co] = sum over blocks of psum[b, co, :] (and sqs),
+// one block of 256 threads per (channel, sample), fixed-order tree.
+// psum/psq: (B, Cout_pad, nblk) f32; sums/sqs: (B, Cout) f32.
+__global__ void __launch_bounds__(256)
+reduce_moments(const float* __restrict__ psum, const float* __restrict__ psq,
+               float* __restrict__ sums, float* __restrict__ sqs,
+               int64_t nblk, int Cout, int Cout_pad) {
+  __shared__ float ss[256], sq[256];
+  const int co = blockIdx.x, b = blockIdx.y, tid = threadIdx.x;
+  const int64_t base = ((int64_t)b * Cout_pad + co) * nblk;
+  float s = 0.f, q = 0.f;
+  for (int64_t i = tid; i < nblk; i += 256) {
+    s += psum[base + i];
+    q += psq[base + i];
+  }
+  ss[tid] = s;
+  sq[tid] = q;
+  __syncthreads();
+  for (int st = 128; st > 0; st >>= 1) {
+    if (tid < st) {
+      ss[tid] += ss[tid + st];
+      sq[tid] += sq[tid + st];
+    }
+    __syncthreads();
+  }
+  if (tid == 0) {
+    sums[(int64_t)b * Cout + co] = ss[0];
+    sqs[(int64_t)b * Cout + co] = sq[0];
+  }
+}
+
+}  // namespace convk
