@@ -113,3 +113,34 @@ def make_phantom(
 
     image += rng.normal(0.0, noise_hu, size=shape).astype(np.float32)
     return image, labels
+
+
+def write_phantom_dataset(
+    root,
+    num_cases: int = 3,
+    shape: tuple[int, int, int] = (96, 96, 64),
+    spacing: tuple[float, float, float] = (1.0, 1.0, 2.0),
+    num_classes: int = 3,
+    vessel_radius: float | None = None,
+    kidney_scale: float = 1.0,
+) -> list[str]:
+    """Write phantoms (seeds 0..num_cases-1) in the KiTS19 layout:
+    root/case_00000/{imaging,segmentation}.nii.gz."""
+    from pathlib import Path
+
+    from runet_tpu_torch.io.nifti import save_volume
+
+    root = Path(root)
+    case_ids = []
+    for i in range(num_cases):
+        cid = f"case_{i:05d}"
+        d = root / cid
+        d.mkdir(parents=True, exist_ok=True)
+        img, seg = make_phantom(
+            shape, spacing, num_classes=num_classes, seed=i,
+            vessel_radius=vessel_radius, kidney_scale=kidney_scale,
+        )
+        save_volume(d / "imaging.nii.gz", img.astype(np.float32), spacing=spacing)
+        save_volume(d / "segmentation.nii.gz", seg, spacing=spacing)
+        case_ids.append(cid)
+    return case_ids

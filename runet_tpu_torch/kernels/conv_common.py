@@ -1,7 +1,8 @@
-"""What the stride-1 and stride-2 conv+moment wrappers share: the weight
-packing done once at load, the ctypes binding and the launch with its
-scratch buffers. The wrappers themselves (with their launch counters and
-plain versions) live in ``fused_block.py`` and ``strided_conv.py``."""
+"""What the stride-1 and stride-2 conv wrappers share: the weight packing,
+the ctypes bindings and launches (with their scratch buffers) of the
+conv+moment and weight-gradient kernels, and the backward's cotangent fold.
+The wrappers themselves (with their launch counters, plain versions and
+autograd Functions) live in ``fused_block.py`` and ``strided_conv.py``."""
 
 from __future__ import annotations
 
@@ -36,21 +37,31 @@ def pack_weight(kernel: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def _library(name: str) -> ctypes.CDLL:
+# The C interface of each kind of library: {function suffix: (argtypes,
+# restype)}. Every pointer and the stream are c_void_p.
+_CONV_STATS_API = {
+    "launch": ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_void_p], ctypes.c_int),
+    "nblk": ([ctypes.c_int] * 3, ctypes.c_longlong),
+    "cout_tile": ([], ctypes.c_int),
+}
+_CONV_DW_API = {
+    "launch": ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p], ctypes.c_int),
+    "splits": ([ctypes.c_int] * 7, ctypes.c_int),
+}
+
+
+def _library(name: str, api: dict) -> ctypes.CDLL:
+    """The built library ``name`` with the C signatures of ``api`` bound,
+    loaded once per process."""
     lib = _bound.get(name)
     if lib is not None:
         return lib
     lib = build.load(name)
-    launch = getattr(lib, f"{name}_launch")
-    launch.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
-    launch.restype = ctypes.c_int
-    nblk = getattr(lib, f"{name}_nblk")
-    nblk.argtypes = [ctypes.c_int] * 3
-    nblk.restype = ctypes.c_longlong
-    tile = getattr(lib, f"{name}_cout_tile")
-    tile.restype = ctypes.c_int
-    if tile() != COUT_TILE:
-        raise RuntimeError(f"{name}: library Cout tile {tile()} != {COUT_TILE}")
+    for suffix, (argtypes, restype) in api.items():
+        fn = getattr(lib, f"{name}_{suffix}")
+        fn.argtypes, fn.restype = argtypes, restype
+    if "cout_tile" in api and getattr(lib, f"{name}_cout_tile")() != COUT_TILE:
+        raise RuntimeError(f"{name}: library Cout tile != {COUT_TILE}")
     _bound[name] = lib
     return lib
 
@@ -71,7 +82,7 @@ def launch_conv_stats(name: str, x: torch.Tensor, packed: torch.Tensor, cout: in
             or cout_p % COUT_TILE:
         raise ValueError(f"{name}: packed weights {tuple(packed.shape)} do not fit "
                          f"Cin={C}, Cout={cout}")
-    lib = _library(name)
+    lib = _library(name, _CONV_STATS_API)
     Do, Ho, Wo = out_dhw
     nblk = int(getattr(lib, f"{name}_nblk")(Do, Ho, Wo))
     dev = x.device
@@ -90,6 +101,45 @@ def launch_conv_stats(name: str, x: torch.Tensor, packed: torch.Tensor, cout: in
     if rc != 0:
         raise RuntimeError(f"{name}: kernel launch failed with CUDA error {rc}")
     return y, sums, sqs
+
+
+def launch_conv_dw(name: str, x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """Run the weight-gradient kernel ``name`` on x (B, D, C, H, W) bf16 and
+    the output cotangent g (B, Do, Cout, Ho, Wo) bf16, one launch for the
+    whole batch; returns dw (3, 3, 3, C, Cout) f32."""
+    if x.dtype != torch.bfloat16 or g.dtype != torch.bfloat16:
+        raise TypeError(f"{name}: the CUDA kernel takes bf16 x and g, got {x.dtype}, {g.dtype}")
+    if g.device != x.device or x.dim() != 5 or g.dim() != 5 or g.shape[0] != x.shape[0]:
+        raise ValueError(f"{name}: x {tuple(x.shape)} and g {tuple(g.shape)} do not match")
+    x, g = x.contiguous(), g.contiguous()
+    B, D, C, H, W = x.shape
+    cout = g.shape[2]
+    lib = _library(name, _CONV_DW_API)
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    n_splits = int(getattr(lib, f"{name}_splits")(B, D, H, W, C, cout, sms))
+    part = torch.empty((n_splits, 27, C, cout), dtype=torch.float32, device=x.device)
+    dw = torch.empty((3, 3, 3, C, cout), dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = getattr(lib, f"{name}_launch")(
+            x.data_ptr(), g.data_ptr(), part.data_ptr(), dw.data_ptr(),
+            B, D, C, H, W, cout, n_splits, stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"{name}: kernel launch failed with CUDA error {rc}")
+    return dw
+
+
+def fold_moment_cotangents(gy: torch.Tensor, gs: torch.Tensor, gq: torch.Tensor,
+                           y: torch.Tensor) -> torch.Tensor:
+    """The conv output's total cotangent, from the cotangents of y and of
+    its per-(sample, channel) sums Σy (gs) and Σy² (gq): g = gy + gs + 2·gq·y.
+    Folded in y's dtype, one rounding per operation in the JAX package's
+    order (``fused_block.py::_cv2m_bwd``); y is (B, D, C, H, W), gs and gq
+    (B, C)."""
+    dt = y.dtype
+    bc = (y.shape[0], 1, y.shape[2], 1, 1)
+    return gy.to(dt) + gs.to(dt).reshape(bc) + (2.0 * gq).to(dt).reshape(bc) * y
 
 
 @contextmanager

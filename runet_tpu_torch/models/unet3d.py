@@ -13,9 +13,13 @@ maps a checkpoint one key at a time.
 - Every 3x3x3 conv, at every level, runs through the fused conv+moment
   kernels (``kernels/fused_block.py`` stride 1, ``kernels/strided_conv.py``
   stride 2): CUDA kernels on the card, their plain versions on the CPU.
-- Conv and projection weights are held in the compute dtype (cast once at
-  load); InstanceNorm affine params and the head stay f32, and the head
-  runs in f32.
+- Serving model: conv and projection weights are held in the compute dtype
+  (cast once at load), frozen; InstanceNorm affine params and the head stay
+  f32, and the head runs in f32.
+- Train model (``create_train_model``): every weight is a trainable f32
+  master (``ModelConfig.param_dtype``) cast to the compute dtype in the
+  forward, as flax does; the CUDA layout of each conv kernel is repacked
+  from that cast whenever the master changes (``packed_kernel``).
 """
 
 from __future__ import annotations
@@ -33,8 +37,11 @@ from runet_tpu_torch.kernels.strided_conv import conv_s2_stats_dchw_batch
 from runet_tpu_torch.models.norm import InstanceNorm
 
 
-def _param(shape, dtype, device) -> nn.Parameter:
-    return nn.Parameter(torch.zeros(shape, dtype=dtype, device=device), requires_grad=False)
+def _param(shape, dtype, device, param_dtype=None) -> nn.Parameter:
+    """A frozen parameter in ``dtype``, or with ``param_dtype`` given a
+    trainable one in that dtype (the train model's master weight)."""
+    return nn.Parameter(torch.zeros(shape, dtype=param_dtype or dtype, device=device),
+                        requires_grad=param_dtype is not None)
 
 
 class ConvNormAct(nn.Module):
@@ -43,20 +50,24 @@ class ConvNormAct(nn.Module):
 
     def __init__(self, cin: int, features: int, stride: int = 1,
                  negative_slope: float = 1e-2, norm_eps: float = 1e-5,
-                 dtype=torch.bfloat16, device=None):
+                 dtype=torch.bfloat16, device=None, param_dtype=None):
+        """``param_dtype`` given: a trainable kernel in that dtype (the
+        train model's f32 master); otherwise a frozen one in ``dtype``."""
         super().__init__()
         if stride not in (1, 2):
             raise ValueError(f"stride must be 1 or 2, got {stride}")
         self.stride = stride
         self.negative_slope = negative_slope
         self.dtype = dtype
-        self.kernel = _param((3, 3, 3, cin, features), dtype, device)
-        self.InstanceNorm_0 = InstanceNorm(features, norm_eps, dtype, device=device)
+        self.kernel = _param((3, 3, 3, cin, features), dtype, device, param_dtype)
+        self.InstanceNorm_0 = InstanceNorm(features, norm_eps, dtype, device=device,
+                                           param_dtype=param_dtype)
         self._packed = None  # (key of the kernel it was packed from, packed)
 
     def packed_kernel(self) -> torch.Tensor:
-        """The kernel in the CUDA layout, packed once per loaded weight (the
-        key changes when the parameter is replaced or written in place)."""
+        """The kernel in the CUDA layout, packed from its bf16 cast once per
+        weight value (the key changes when the parameter is replaced or
+        written in place, e.g. by an optimizer step)."""
         k = self.kernel
         key = (k.device, k.data_ptr(), k._version)
         if self._packed is None or self._packed[0] != key:
@@ -66,7 +77,7 @@ class ConvNormAct(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         conv = conv_s2_stats_dchw_batch if self.stride == 2 else conv_in_stats_dchw_batch
         packed = self.packed_kernel() if x.is_cuda else None
-        y, mean, sqm = conv(x.to(self.dtype), self.kernel, packed)
+        y, mean, sqm = conv(x.to(self.dtype), self.kernel.to(self.dtype), packed)
         y = self.InstanceNorm_0(y, moments=(mean, sqm), channel_axis=2)
         return F.leaky_relu(y, self.negative_slope)
 
@@ -93,23 +104,27 @@ def depth_to_space_dchw(x: torch.Tensor, r: int = 2) -> torch.Tensor:
 
 class _PixelShuffleProj(nn.Module):
     """1x1x1 projection to r³·F channels over the channel axis of a
-    (B, D, C, H, W) activation; kernel (C, out) in the compute dtype."""
+    (B, D, C, H, W) activation; kernel (C, out), applied in the compute
+    dtype."""
 
-    def __init__(self, cin: int, features_out: int, dtype, device=None):
+    def __init__(self, cin: int, features_out: int, dtype, device=None, param_dtype=None):
         super().__init__()
-        self.kernel = _param((cin, features_out), dtype, device)
+        self.dtype = dtype
+        self.kernel = _param((cin, features_out), dtype, device, param_dtype)
 
     def forward(self, x):
         B, D, C, H, W = x.shape
-        y = torch.matmul(self.kernel.t(), x.to(self.kernel.dtype).reshape(B, D, C, H * W))
+        k = self.kernel.to(self.dtype)
+        y = torch.matmul(k.t(), x.to(self.dtype).reshape(B, D, C, H * W))
         return y.reshape(B, D, -1, H, W)
 
 
 class DecoderBlock(nn.Module):
-    def __init__(self, cin: int, features: int, dtype=torch.bfloat16, device=None, **kw):
+    def __init__(self, cin: int, features: int, dtype=torch.bfloat16, device=None,
+                 param_dtype=None, **kw):
         super().__init__()
-        self.Conv_0 = _PixelShuffleProj(cin, features * 8, dtype, device)
-        kw = dict(kw, dtype=dtype, device=device)
+        self.Conv_0 = _PixelShuffleProj(cin, features * 8, dtype, device, param_dtype)
+        kw = dict(kw, dtype=dtype, device=device, param_dtype=param_dtype)
         self.ConvNormAct_0 = ConvNormAct(2 * features, features, 1, **kw)
         self.ConvNormAct_1 = ConvNormAct(features, features, 1, **kw)
 
@@ -122,16 +137,16 @@ class DecoderBlock(nn.Module):
 class _Head(nn.Module):
     """1x1x1 logits head in f32: (B, D, C, H, W) → (B, D, H, W, K)."""
 
-    def __init__(self, cin: int, num_classes: int, device=None):
+    def __init__(self, cin: int, num_classes: int, device=None, param_dtype=None):
         super().__init__()
-        self.kernel = _param((cin, num_classes), torch.float32, device)
-        self.bias = _param((num_classes,), torch.float32, device)
+        self.kernel = _param((cin, num_classes), torch.float32, device, param_dtype)
+        self.bias = _param((num_classes,), torch.float32, device, param_dtype)
 
     def forward(self, x):
         B, D, C, H, W = x.shape
-        y = torch.matmul(self.kernel.t(), x.float().reshape(B, D, C, H * W))
+        y = torch.matmul(self.kernel.float().t(), x.float().reshape(B, D, C, H * W))
         y = y.reshape(B, D, -1, H, W).permute(0, 1, 3, 4, 2)
-        return y + self.bias
+        return y + self.bias.float()
 
 
 def level_features(cfg: ModelConfig) -> Sequence[int]:
@@ -141,9 +156,11 @@ def level_features(cfg: ModelConfig) -> Sequence[int]:
 class UNet3D(nn.Module):
     """cfg-driven 3D U-Net: (B, D, H, W, C_in) → logits (B, D, H, W, K) f32.
 
-    Spatial dims must be divisible by 2**(num_levels - 1)."""
+    Spatial dims must be divisible by 2**(num_levels - 1). ``trainable``:
+    f32 master weights with gradients (``create_train_model``); otherwise
+    frozen serving weights in the compute dtype."""
 
-    def __init__(self, cfg: ModelConfig, device=None):
+    def __init__(self, cfg: ModelConfig, device=None, trainable: bool = False):
         super().__init__()
         if cfg.upsample_mode != "pixelshuffle":
             raise NotImplementedError("upsample_mode='convtranspose' is not ported yet")
@@ -152,15 +169,16 @@ class UNet3D(nn.Module):
         self.cfg = cfg
         self.dtype = getattr(torch, cfg.compute_dtype)
         feats = level_features(cfg)
+        param_dtype = getattr(torch, cfg.param_dtype) if trainable else None
         kw = dict(negative_slope=cfg.negative_slope, norm_eps=cfg.norm_eps,
-                  dtype=self.dtype, device=device)
+                  dtype=self.dtype, device=device, param_dtype=param_dtype)
         cin = cfg.in_channels
         for lvl, f in enumerate(feats):
             self.add_module(f"enc{lvl}", EncoderBlock(cin, f, downsample=lvl > 0, **kw))
             cin = f
         for lvl in reversed(range(len(feats) - 1)):
             self.add_module(f"dec{lvl}", DecoderBlock(feats[lvl + 1], feats[lvl], **kw))
-        self.Conv_0 = _Head(feats[0], cfg.num_classes, device)
+        self.Conv_0 = _Head(feats[0], cfg.num_classes, device, param_dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         n = len(level_features(self.cfg))
@@ -183,3 +201,40 @@ class UNet3D(nn.Module):
 
 def create_model(cfg: ModelConfig, device=None) -> UNet3D:
     return UNet3D(cfg, device=device)
+
+
+def create_train_model(cfg: ModelConfig, device=None) -> UNet3D:
+    """The model of the training step: the serving model's parameter tree
+    with trainable f32 master weights, on ``device`` (CUDA unless named).
+    Every 3x3x3 conv runs through the kernels and their autograd Functions
+    whatever ``fused_blocks_train`` says (the Hopper kernels have no gate)."""
+    from runet_tpu_torch import resolve_device
+
+    if cfg.remat:
+        raise NotImplementedError("remat (activation recomputation) is not ported yet")
+    return UNet3D(cfg, device=resolve_device(device), trainable=True)
+
+
+_TRUNC_STD = 0.87962566103423978  # std of a unit normal truncated to [-2, 2]
+
+
+@torch.no_grad()
+def init_params(model: UNet3D, generator: torch.Generator) -> UNet3D:
+    """Initialise ``model`` in place as flax's ``init`` does: ``lecun_normal``
+    kernels (a unit normal truncated to [-2, 2], scaled by
+    sqrt(1/fan_in)/0.8796 so the std is sqrt(1/fan_in); fan_in = 27·Cin for
+    the 3x3x3 convs, C for the 1x1x1 projections and the head), zero head
+    bias, unit InstanceNorm scale and zero bias. Draws come from
+    ``generator`` (a CPU generator) in the module order, so a seed gives the
+    same weights on every device."""
+    for name, p in model.named_parameters():
+        if name.endswith("kernel"):
+            fan_in = 27 * p.shape[3] if p.dim() == 5 else p.shape[0]
+            w = torch.empty(p.shape, dtype=torch.float32)
+            torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=generator)
+            p.copy_(w * (fan_in ** -0.5 / _TRUNC_STD))
+        elif name.endswith("scale"):
+            p.fill_(1.0)
+        else:
+            p.zero_()
+    return model

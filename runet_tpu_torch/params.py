@@ -11,7 +11,9 @@ modules reuse the flax names, so each key maps to one state_dict entry:
 - ``.../InstanceNorm_0/{scale,bias}`` (C,).
 
 Loading into the model casts each tensor to its parameter's dtype (conv and
-projection kernels to the compute dtype) once, at load.
+projection kernels to the compute dtype in the serving model, f32 masters in
+the train model) once, at load. ``torch_to_flax`` goes the other way, so a
+trained model can be compared key for key with JAX or saved as an npz.
 """
 
 from __future__ import annotations
@@ -47,9 +49,24 @@ def flax_to_torch(flat: dict[str, np.ndarray]) -> dict[str, torch.Tensor]:
     return out
 
 
+def torch_to_flax(model: UNet3D) -> dict[str, np.ndarray]:
+    """The inverse of ``flax_to_torch``: the model's parameters as flat
+    ``/``-joined flax keys, f32 numpy, with the 1x1x1 projection and head
+    kernels back in flax's (1, 1, 1, C, out) shape — the layout of the
+    committed npz files and of JAX's ``init_params`` output."""
+    out = {}
+    for name, t in model.state_dict().items():
+        a = t.detach().float().cpu().numpy()
+        if name.endswith("kernel") and a.ndim == 2:
+            a = a.reshape(1, 1, 1, *a.shape)
+        out[name.replace(".", "/")] = a
+    return out
+
+
 def load_state(model: UNet3D, flat: dict[str, np.ndarray]) -> UNet3D:
     """Copy flat flax params into ``model`` (strict: every key must match
-    in name and shape)."""
+    in name and shape). Each tensor takes its parameter's dtype: the
+    serving model's compute dtype, or the train model's f32 masters."""
     sd = flax_to_torch(flat)
     own = model.state_dict()
     missing = sorted(set(own) - set(sd))

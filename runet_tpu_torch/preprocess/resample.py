@@ -1,14 +1,19 @@
 """Separable trilinear resampling as dense interpolation-matrix products.
 
-Counterpart of ``runet_tpu/preprocess/resample.py`` (the runtime-scale
-functions the cascade uses). Output index j on axis a samples input
-coordinate ``j * scale[a]`` in f32 (corner-aligned, spacing-ratio scale),
-clamped to the valid range — edge mode "nearest". Each 1-D pass is one
-(out, in) x (in, rest) matrix product with at most two nonzeros per row.
+Counterpart of ``runet_tpu/preprocess/resample.py``: the static-scale
+functions the dataset uses (matrices built on the host in f64 positions)
+and the runtime-scale ones the cascade uses (positions in f32 on the
+device). Output index j on axis a samples input coordinate ``j * scale[a]``
+(corner-aligned, spacing-ratio scale), clamped to the valid range — edge
+mode "nearest". Each 1-D pass is one (out, in) x (in, rest) matrix product
+with at most two nonzeros per row.
 """
 
 from __future__ import annotations
 
+from functools import lru_cache
+
+import numpy as np
 import torch
 
 
@@ -22,6 +27,61 @@ def output_shape_for_spacing(
         max(1, int(round(n * s / d)))
         for n, s, d in zip(in_shape, src_spacing, dst_spacing)
     )
+
+
+def matrix_from_positions(pos: np.ndarray, in_size: int, method: str) -> np.ndarray:
+    """(len(pos), in_size) f32 interpolation matrix, at most two nonzeros
+    per row, for input-coordinate sample positions ``pos`` already clamped
+    to [0, in_size-1]. The shared builder of the static resampling below and
+    of the zoom bank in ``data/augment.py``."""
+    out_size = len(pos)
+    W = np.zeros((out_size, in_size), np.float32)
+    rows = np.arange(out_size)
+    if method == "linear":
+        i0 = np.clip(np.floor(pos).astype(np.int64), 0, in_size - 1)
+        i1 = np.minimum(i0 + 1, in_size - 1)
+        w = (pos - i0).astype(np.float32)
+        # i0 may equal i1 at the clamp edge: accumulate, don't overwrite.
+        np.add.at(W, (rows, i0), 1.0 - w)
+        np.add.at(W, (rows, i1), w)
+    else:  # nearest: floor(x + 0.5) matches scipy order=0 tie-breaking
+        idx = np.clip(np.floor(pos + 0.5).astype(np.int64), 0, in_size - 1)
+        W[rows, idx] = 1.0
+    return W
+
+
+@lru_cache(maxsize=256)
+def _interp_matrix(in_size: int, out_size: int, scale: float, method: str) -> np.ndarray:
+    """Static-scale (out_size, in_size) matrix: positions j·scale in f64,
+    clamped to the valid range."""
+    pos = np.clip(np.arange(out_size, dtype=np.float64) * float(scale), 0.0, float(in_size - 1))
+    return matrix_from_positions(pos, in_size, method)
+
+
+def resample(x: torch.Tensor, out_shape: tuple[int, int, int], scale: tuple[float, float, float],
+             method: str = "linear") -> torch.Tensor:
+    """Resample a 3-D volume with a static scale: out[j] = x[clamp(j·scale)]
+    per axis (``scale[a]`` = dst/src spacing). Axes whose size and scale
+    leave them unchanged are skipped; a "nearest" resample of an integer
+    volume keeps its dtype."""
+    if x.dim() != 3:
+        raise ValueError(f"expected 3D, got {tuple(x.shape)}")
+    orig_dtype = x.dtype
+    for axis in range(3):
+        if x.shape[axis] != out_shape[axis] or scale[axis] != 1.0:
+            W = torch.from_numpy(_interp_matrix(x.shape[axis], out_shape[axis],
+                                                float(scale[axis]), method)).to(x.device)
+            x = _apply_axis(x.float(), axis, W)
+    if method == "nearest" and not orig_dtype.is_floating_point:
+        x = torch.round(x).to(orig_dtype)
+    return x
+
+
+def resample_to_spacing(x: torch.Tensor, src_spacing, dst_spacing,
+                        method: str = "linear") -> torch.Tensor:
+    out_shape = output_shape_for_spacing(tuple(x.shape), src_spacing, dst_spacing)
+    scale = tuple(d / s for s, d in zip(src_spacing, dst_spacing))
+    return resample(x, out_shape, scale, method)
 
 
 def _interp_matrix_traced(in_size: int, out_size: int, scale, method: str,

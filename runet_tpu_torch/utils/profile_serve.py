@@ -24,6 +24,7 @@ from runet_tpu_torch import resolve_device
 from runet_tpu_torch.data.phantom import make_phantom
 from runet_tpu_torch.infer.cascade import ModelBundle, predict_case
 from runet_tpu_torch.params import load_model
+from runet_tpu_torch.utils.device_time import device_rows, group_device_time
 from runet_tpu_torch.utils.timing import PhaseTimer
 
 CASE_SHAPE = (512, 512, 160)
@@ -38,14 +39,6 @@ GROUPS = [
     ("copies / layout", ("copy", "Copy", "cat", "Cat", "transpose", "permute", "Memcpy", "Memset")),
     ("softmax / argmax / reductions", ("softmax", "Softmax", "argmax", "Argmax", "reduce", "Reduce")),
 ]
-
-
-def _device_us(evt) -> float:
-    for attr in ("self_device_time_total", "self_cuda_time_total"):
-        v = getattr(evt, attr, None)
-        if v is not None:
-            return float(v)
-    return 0.0
 
 
 def main(argv=None):
@@ -79,21 +72,9 @@ def main(argv=None):
         t0 = time.monotonic()
         run()
         prof_wall = time.monotonic() - t0
-    # Device-side events only (kernels, memcpy/memset): the CPU ops' own
-    # device totals would count the same kernels twice.
-    rows = [(e.key, _device_us(e), e.count) for e in prof.key_averages()
-            if str(getattr(e, "device_type", "")).endswith("CUDA")]
-    rows = [r for r in rows if r[1] > 0]
+    rows = device_rows(prof)
     device_us = sum(r[1] for r in rows)
-    groups = {g: 0.0 for g, _ in GROUPS}
-    groups["other"] = 0.0
-    for key, us, _n in rows:
-        for g, subs in GROUPS:
-            if any(s in key for s in subs):
-                groups[g] += us
-                break
-        else:
-            groups["other"] += us
+    groups, _ = group_device_time(rows, GROUPS)
     top = sorted(rows, key=lambda r: -r[1])[:15]
     summary = {
         "card": card,
