@@ -1,10 +1,10 @@
 """PyTorch + CUDA port of ``runet_tpu`` for NVIDIA Hopper (H100).
 
 Module names and layout follow ``runet_tpu`` so each counterpart is easy to
-find. The two 3x3x3 conv+InstanceNorm-moment kernels that the JAX package
-wrote in Pallas are hand-written CUDA here (``kernels/csrc``); everything
-the JAX package left to XLA is ordinary torch. The package imports nothing
-of JAX or of ``runet_tpu``.
+find. The 3x3x3 conv+InstanceNorm-moment kernels and weight-gradient kernels
+that the JAX package wrote in Pallas are hand-written CUDA here
+(``kernels/csrc``); everything the JAX package left to XLA is ordinary
+torch. The package imports nothing of JAX or of ``runet_tpu``.
 
 Entry points take a ``device`` argument that defaults to CUDA and raise when
 no GPU is present; pass ``device="cpu"`` to run the plain PyTorch versions.

@@ -2,11 +2,13 @@
 
 The five presets are those of the JAX package (``runet_tpu/config.py``), so a
 preset name means the same model, preprocessing and cascade in both.
-Some fields select TPU kernel variants (``fused_kernel``,
-``fused_contracting``, ``fused_downsample``); they are kept so that a config
-serialised by either package loads in the other. In this package every
-3x3x3 convolution runs through the kernels of ``runet_tpu_torch.kernels``
-whatever they say.
+``fused_kernel`` picks the stride-1 conv kernel here as it does there ("v2m",
+"v2" or "v1": one CUDA kernel each, ``kernels/fused_block.py``). The gates
+``fused_blocks``, ``fused_blocks_train``, ``fused_contracting`` and
+``fused_downsample`` exist for the TPU kernels' shape limits; they are kept
+so that a config serialised by either package loads in the other, and in
+this package every 3x3x3 convolution runs through the kernels of
+``runet_tpu_torch.kernels`` whatever they say.
 """
 
 from __future__ import annotations
@@ -34,7 +36,7 @@ class ModelConfig:
     upsample_mode: str = "pixelshuffle"
     # Recompute block activations in the backward pass (training only).
     remat: bool = False
-    # TPU kernel selection of the JAX package; see the module docstring.
+    # Kernel selection; see the module docstring.
     fused_blocks: bool = True
     fused_kernel: str = "v2m"
     fused_blocks_train: bool = True
@@ -108,7 +110,8 @@ class InferConfig:
     # ratio x the patch volume (the network is fully convolutional; 0
     # disables). Windows remain the fallback beyond the ratio.
     single_pass_ratio: float = 8.0
-    # Mirror-flip test-time augmentation (not ported yet; see ROADMAP.md).
+    # Mirror-flip test-time augmentation: average the softmax over all flip
+    # subsets of tta_axes (2^k forwards per window), infer/tta.py.
     tta: bool = False
     tta_axes: tuple[int, ...] = (0, 1, 2)
 
@@ -130,7 +133,7 @@ class CascadeConfig:
     # case exceeds it.
     coarse_canonical: tuple[int, int, int] = (128, 128, 128)
     max_components: int = 2  # keep <=2 largest kidney CCs
-    # Same-bucket ROIs batched into one forward (not ported yet; 1 only).
+    # Same-bucket single-pass ROIs batched into one forward (1 = off).
     roi_batch: int = 1
     # Hard cap on ROI physical extent per axis.
     roi_max_mm: float = 192.0

@@ -30,7 +30,9 @@ PREFETCH = 2
 
 class PatchLoader:
     """Infinite iterator of (images (B, X, Y, Z, 1) f16, labels (B, X, Y, Z)
-    uint8) batches resident on ``device`` (CUDA unless named)."""
+    uint8) batches resident on ``device`` (CUDA unless named). With
+    ``stack_steps = K > 1`` each item is a (K, B, ...) superbatch of K
+    consecutive draws, for the K-micro-steps-per-call train path."""
 
     # Queue sentinel marking a dead worker: the consumer re-raises instead
     # of blocking forever on an empty queue.
@@ -44,11 +46,13 @@ class PatchLoader:
         fg_prob: float = 0.5,
         seed: int = 0,
         device=None,
+        stack_steps: int = 1,
     ):
         self.cases = cases
         self.batch_size = batch_size
         self.patch_size = patch_size
         self.fg_prob = fg_prob
+        self.stack_steps = max(1, stack_steps)
         self.device = resolve_device(device)
         self._cuda = self.device.type == "cuda"
         self._copy_stream = torch.cuda.Stream(self.device) if self._cuda else None
@@ -76,10 +80,15 @@ class PatchLoader:
 
     def _worker_loop(self):
         while not self._stop.is_set():
-            images, labels = sample_batch(
-                self._rng, self.cases, self.batch_size, self.patch_size, self.fg_prob,
-                image_dtype=np.float16, label_dtype=np.uint8,
-            )
+            parts = [
+                sample_batch(self._rng, self.cases, self.batch_size, self.patch_size,
+                             self.fg_prob, image_dtype=np.float16, label_dtype=np.uint8)
+                for _ in range(self.stack_steps)
+            ]
+            if self.stack_steps > 1:
+                images, labels = (np.stack([p[j] for p in parts]) for j in range(2))
+            else:
+                images, labels = parts[0]
             batch = (torch.from_numpy(images), torch.from_numpy(labels))
             if self._cuda:
                 batch = tuple(t.pin_memory() for t in batch)

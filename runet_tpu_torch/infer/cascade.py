@@ -12,8 +12,10 @@ Counterpart of ``runet_tpu/infer/cascade.py``. Per case:
 6. host paste into a native canvas and keep the 2 largest components.
 
 The full volume never exists at fine spacing — only kidney ROIs do.
-Not ported yet (ROADMAP.md): mirror-flip TTA, ``roi_batch > 1`` and
-multi-device serving lanes.
+``InferConfig.tta`` wraps a stage's ``apply_fn`` with mirror-flip averaging
+(``infer/tta.py``); ``CascadeConfig.roi_batch > 1`` holds single-pass ROIs of
+the same bucket and runs each full group through one batched forward.
+Not ported yet (ROADMAP.md): multi-device serving lanes.
 """
 
 from __future__ import annotations
@@ -41,6 +43,7 @@ from runet_tpu_torch.infer.postprocess import (
     keep_largest_components_in_boxes,
 )
 from runet_tpu_torch.infer.sliding_window import _single_pass, sliding_window_predict
+from runet_tpu_torch.infer.tta import effective_apply_fn
 from runet_tpu_torch.preprocess.normalize import normalize
 from runet_tpu_torch.preprocess.resample import (
     output_shape_for_spacing,
@@ -67,11 +70,6 @@ class ModelBundle:
         return cls(apply_fn=lambda _p, w: model(w), params=None,
                    num_classes=cfg.model.num_classes, preprocess=cfg.preprocess,
                    infer=cfg.infer)
-
-
-def _check_bundle(bundle: ModelBundle):
-    if bundle.infer.tta:
-        raise NotImplementedError("test-time augmentation is not ported yet")
 
 
 def _to_transfer_dtype(image: np.ndarray, pp: PreprocessConfig | None = None) -> np.ndarray:
@@ -124,7 +122,7 @@ def _stage_resample_in(up: torch.Tensor, out_shape, scale, pp: PreprocessConfig,
 
 def _predict_stage(bundle: ModelBundle, volume: torch.Tensor, return_probs: bool = False):
     return sliding_window_predict(
-        bundle.apply_fn, bundle.params, volume,
+        effective_apply_fn(bundle), bundle.params, volume,
         patch_size=tuple(bundle.infer.patch_size),
         num_classes=bundle.num_classes,
         overlap=bundle.infer.overlap,
@@ -173,7 +171,51 @@ def _bucket_up(size, bucket: int) -> tuple[int, int, int]:
     return tuple(-(-int(s) // bucket) * bucket for s in size)
 
 
-def _coarse_stage_core(bundle: ModelBundle, x: torch.Tensor) -> torch.Tensor:
+def _roi_program(apply_fn, fine: ModelBundle, up: torch.Tensor, padded_shape, crop_shape,
+                 scale_nf, scale_fn) -> torch.Tensor:
+    """One single-pass ROI on the device: dequant → resample → normalize →
+    forward → argmax → one-hot back-resample to the native crop → pack."""
+    roi = _stage_resample_in(up, padded_shape, scale_nf, fine.preprocess)
+    labels, _ = _single_pass(apply_fn, fine.params, roi[..., None])
+    native = resample_labels_onehot_dynamic(
+        labels.to(torch.int32), tuple(crop_shape), scale_fn, fine.num_classes).to(torch.uint8)
+    return _pack_labels(native, fine.num_classes)
+
+
+def _stage_resample_in_batch(ups: torch.Tensor, padded_shape, scale_nf,
+                             pp: PreprocessConfig) -> torch.Tensor:
+    """``_stage_resample_in`` per sample of a (B, cx, cy, cz) upload (normalize
+    must see per-ROI statistics when ``hu_stats`` is None)."""
+    return torch.stack([_stage_resample_in(u, padded_shape, scale_nf, pp) for u in ups])
+
+
+def _roi_stage_core_batch(apply_fn, params, rois: torch.Tensor) -> torch.Tensor:
+    """The batched forward and argmax: (B, *padded) → uint8 labels."""
+    probs = torch.softmax(apply_fn(params, rois[..., None]).float(), dim=-1)
+    return torch.argmax(probs, dim=-1).to(torch.uint8)
+
+
+def _roi_stage_out_batch(labels: torch.Tensor, crop_shape, scale_fn,
+                         num_classes: int) -> torch.Tensor:
+    """One-hot back-resample per sample, then the (batch-agnostic) last-axis
+    pack."""
+    native = torch.stack([
+        resample_labels_onehot_dynamic(lab.to(torch.int32), tuple(crop_shape), scale_fn,
+                                       num_classes).to(torch.uint8)
+        for lab in labels])
+    return _pack_labels(native, num_classes)
+
+
+def _roi_program_batch(apply_fn, fine: ModelBundle, ups: torch.Tensor, padded_shape, crop_shape,
+                       scale_nf, scale_fn) -> torch.Tensor:
+    """``_roi_program`` for B same-bucket ROIs: one batched forward between
+    per-sample resamples."""
+    rois = _stage_resample_in_batch(ups, padded_shape, scale_nf, fine.preprocess)
+    labels = _roi_stage_core_batch(apply_fn, fine.params, rois)
+    return _roi_stage_out_batch(labels, crop_shape, scale_fn, fine.num_classes)
+
+
+def _coarse_stage_core(apply_fn, params, x: torch.Tensor) -> torch.Tensor:
     """pad32 (with the volume minimum, "air") → forward → argmax → binarize
     → bit-pack along z."""
     shape = x.shape
@@ -181,7 +223,7 @@ def _coarse_stage_core(bundle: ModelBundle, x: torch.Tensor) -> torch.Tensor:
     if div32 != tuple(shape):
         x = F.pad(x, (0, div32[2] - shape[2], 0, div32[1] - shape[1], 0, div32[0] - shape[0]),
                   value=float(x.min()))
-    labels, _ = _single_pass(bundle.apply_fn, bundle.params, x[..., None])
+    labels, _ = _single_pass(apply_fn, params, x[..., None])
     return pack_bits(labels[: shape[0], : shape[1], : shape[2]] > 0)
 
 
@@ -192,7 +234,6 @@ def predict_volume(fine: ModelBundle, image: np.ndarray, native_spacing,
     returns the class probabilities at the preprocessed grid as f16 numpy,
     with the preprocess spacing."""
     dev = resolve_device(device)
-    _check_bundle(fine)
     pp = fine.preprocess
     with torch.inference_mode():
         out_shape = output_shape_for_spacing(image.shape, native_spacing, pp.spacing)
@@ -227,14 +268,12 @@ def predict_case(
 
 
 def _predict_case(coarse, fine, image, native_spacing, cascade, postprocess, timer, dev):
-    _check_bundle(coarse)
-    _check_bundle(fine)
-    if cascade.roi_batch > 1:
-        raise NotImplementedError("roi_batch > 1 is not ported yet")
     if fine.preprocess.transfer_quant4:
         raise ValueError("transfer_quant4 is not supported on the fine/ROI path; "
                          "set it only on the coarse preset's PreprocessConfig")
     t = timer if timer is not None else PhaseTimer(enabled=False)
+    coarse_apply = effective_apply_fn(coarse)
+    fine_apply = effective_apply_fn(fine)
     n_sp = np.asarray(native_spacing, np.float64)
     c_sp = np.asarray(coarse.preprocess.spacing, np.float64)
     f_sp = np.asarray(fine.preprocess.spacing, np.float64)
@@ -269,7 +308,8 @@ def _predict_case(coarse, fine, image, native_spacing, cascade, postprocess, tim
         in_z = int(strided.shape[-1]) if c_pp.transfer_quant and c_pp.transfer_quant4 else None
         if c_single:
             x = _stage_resample_in(_upload(strided, c_pp, dev), c_run_shape, c_scale, c_pp, in_z)
-            mask = unpack_bits(_coarse_stage_core(coarse, x).cpu().numpy(), c_run_shape[2])
+            mask = unpack_bits(_coarse_stage_core(coarse_apply, coarse.params, x).cpu().numpy(),
+                               c_run_shape[2])
         else:
             vol = _stage_resample_in(_upload(strided, c_pp, dev), c_out_shape, c_scale, c_pp, in_z)
             mask = (_predict_stage(coarse, vol).cpu().numpy() > 0).astype(np.uint8)
@@ -282,10 +322,33 @@ def _predict_case(coarse, fine, image, native_spacing, cascade, postprocess, tim
     native_canvas = np.zeros(image.shape, np.uint8)
     margin_vox = np.ceil(cascade.roi_margin_mm / n_sp).astype(int)
     native_boxes = []
-    roi_results = []  # (lo, hi, want_buf, device packed labels)
+    roi_results = []  # (lo, hi, want_buf, device packed labels, batch index or None)
+    # roi_batch > 1: single-pass ROIs whose bucketed shapes match are held
+    # here and run as ONE batched program when a group fills; groups still
+    # short at the end go through the B = 1 program one by one. Staging can
+    # reorder pastes across buckets, which shows only where two ROI boxes
+    # overlap with conflicting nonzero labels.
+    roi_batch = max(1, int(cascade.roi_batch))
+    pending_rois: dict[tuple, list] = {}
     scale_nf = np.asarray([f / n for n, f in zip(n_sp, f_sp)], np.float32)
     scale_fn = np.asarray([n / f for n, f in zip(n_sp, f_sp)], np.float32)
     f_pp = fine.preprocess
+
+    def dispatch_rois(entries):
+        """Queue the device work of 1..B staged same-bucket ROIs."""
+        padded = entries[0][4]
+        with t.phase("roi_predict"):
+            if len(entries) == 1:
+                lo_, hi_, wb_, crop_, _ = entries[0]
+                packed = _roi_program(fine_apply, fine, _upload(crop_, f_pp, dev), padded,
+                                      crop_.shape, scale_nf, scale_fn)
+                roi_results.append((lo_, hi_, wb_, packed, None))
+            else:
+                ups = torch.stack([_upload(e[3], f_pp, dev) for e in entries])
+                packed = _roi_program_batch(fine_apply, fine, ups, padded, entries[0][3].shape,
+                                            scale_nf, scale_fn)
+                for i, (lo_, hi_, wb_, _c, _p) in enumerate(entries):
+                    roi_results.append((lo_, hi_, wb_, packed, i))
 
     for lo_c, hi_c in boxes:
         # coarse voxel → mm → NATIVE voxel, plus margin.
@@ -328,24 +391,43 @@ def _predict_case(coarse, fine, image, native_spacing, cascade, postprocess, tim
             fine.infer.single_pass_ratio > 0
             and np.prod(padded_shape) <= fine.infer.single_pass_ratio * np.prod(fine.infer.patch_size)
         )
+        want_buf_t = tuple(int(w) for w in want_buf)
+        if single_pass:
+            entry = (lo, hi, want_buf_t, crop, tuple(int(p) for p in padded_shape))
+            if roi_batch > 1:
+                key = (entry[4], tuple(crop.shape))
+                grp = pending_rois.setdefault(key, [])
+                grp.append(entry)
+                if len(grp) >= roi_batch:
+                    dispatch_rois(grp)
+                    pending_rois[key] = []
+            else:
+                dispatch_rois([entry])
+            continue
         with t.phase("roi_predict"):
             roi = _stage_resample_in(_upload(crop, f_pp, dev), padded_shape, scale_nf, f_pp)
-            if single_pass:
-                roi_labels, _ = _single_pass(fine.apply_fn, fine.params, roi[..., None])
-            else:
-                roi_labels = _predict_stage(fine, roi)
             native = resample_labels_onehot_dynamic(
-                roi_labels.to(torch.int32), tuple(crop.shape), scale_fn, fine.num_classes
-            ).to(torch.uint8)
-            roi_results.append((lo, hi, tuple(int(w) for w in want_buf),
-                                _pack_labels(native, fine.num_classes)))
+                _predict_stage(fine, roi).to(torch.int32), tuple(crop.shape), scale_fn,
+                fine.num_classes).to(torch.uint8)
+            roi_results.append((lo, hi, want_buf_t, _pack_labels(native, fine.num_classes), None))
+
+    for grp in pending_rois.values():
+        for e in grp:
+            dispatch_rois([e])
 
     # ---- fetch + paste (every ROI's device work is already queued) ----
-    for lo, hi, want_buf, dev_packed in roi_results:
+    fetched_memo: dict[int, np.ndarray] = {}
+    for lo, hi, want_buf, dev_packed, bidx in roi_results:
         with t.phase("roi_fetch_paste"):
             # Labels come back at the crop BUFFER shape; only the exactly
             # covered region [0 : hi-lo) is pasted, nonzero over the canvas.
-            fetched = _unpack_labels(dev_packed.cpu().numpy(), fine.num_classes, want_buf[2])
+            # A batched group is fetched once and indexed per sample.
+            host = fetched_memo.get(id(dev_packed))
+            if host is None:
+                host = fetched_memo[id(dev_packed)] = dev_packed.cpu().numpy()
+            if bidx is not None:
+                host = host[bidx]
+            fetched = _unpack_labels(host, fine.num_classes, want_buf[2])
             crop_labels = fetched[: hi[0] - lo[0], : hi[1] - lo[1], : hi[2] - lo[2]]
             dst = native_canvas[lo[0]: hi[0], lo[1]: hi[1], lo[2]: hi[2]]
             native_canvas[lo[0]: hi[0], lo[1]: hi[1], lo[2]: hi[2]] = np.where(

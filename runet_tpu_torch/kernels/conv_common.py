@@ -67,16 +67,22 @@ def _library(name: str, api: dict) -> ctypes.CDLL:
 
 
 def launch_conv_stats(name: str, x: torch.Tensor, packed: torch.Tensor, cout: int,
-                      out_dhw: tuple[int, int, int]):
+                      out_dhw: tuple[int, int, int], layout: str = "dchw"):
     """Run the CUDA kernel ``name`` on x (B, D, C, H, W) bf16 with packed
     weights; returns (y (B, Do, Cout, Ho, Wo) bf16, sums (B, Cout) f32,
-    sqs (B, Cout) f32) for the output extents ``out_dhw``."""
+    sqs (B, Cout) f32) for the output extents ``out_dhw``. With
+    ``layout="dhcw"`` x is (B, D, H, C, W) and y (B, Do, Ho, Cout, Wo)."""
     if x.dtype != torch.bfloat16:
         raise TypeError(f"{name}: the CUDA kernel takes bf16 activations, got {x.dtype}")
     if packed.device != x.device or packed.dtype != torch.bfloat16:
         raise ValueError(f"{name}: packed weights must be bf16 on {x.device}")
+    if layout not in ("dchw", "dhcw"):
+        raise ValueError(f"{name}: unknown layout {layout!r}")
     x = x.contiguous()
-    B, D, C, H, W = x.shape
+    if layout == "dhcw":
+        B, D, H, C, W = x.shape
+    else:
+        B, D, C, H, W = x.shape
     cout_p, cin_p = packed.shape[1], packed.shape[2]
     if packed.shape[0] != 27 or cin_p < C or cin_p % CIN_CHUNK or cout_p < cout \
             or cout_p % COUT_TILE:
@@ -86,7 +92,8 @@ def launch_conv_stats(name: str, x: torch.Tensor, packed: torch.Tensor, cout: in
     Do, Ho, Wo = out_dhw
     nblk = int(getattr(lib, f"{name}_nblk")(Do, Ho, Wo))
     dev = x.device
-    y = torch.empty((B, Do, cout, Ho, Wo), dtype=torch.bfloat16, device=dev)
+    y_shape = (B, Do, Ho, cout, Wo) if layout == "dhcw" else (B, Do, cout, Ho, Wo)
+    y = torch.empty(y_shape, dtype=torch.bfloat16, device=dev)
     psum = torch.empty((B, cout_p, nblk), dtype=torch.float32, device=dev)
     psq = torch.empty_like(psum)
     sums = torch.empty((B, cout), dtype=torch.float32, device=dev)
@@ -131,14 +138,15 @@ def launch_conv_dw(name: str, x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
 
 
 def fold_moment_cotangents(gy: torch.Tensor, gs: torch.Tensor, gq: torch.Tensor,
-                           y: torch.Tensor) -> torch.Tensor:
+                           y: torch.Tensor, channel_axis: int = 2) -> torch.Tensor:
     """The conv output's total cotangent, from the cotangents of y and of
     its per-(sample, channel) sums Σy (gs) and Σy² (gq): g = gy + gs + 2·gq·y.
     Folded in y's dtype, one rounding per operation in the JAX package's
-    order (``fused_block.py::_cv2m_bwd``); y is (B, D, C, H, W), gs and gq
-    (B, C)."""
+    order (``fused_block.py::_cv2m_bwd``); y is (B, D, C, H, W), or
+    (B, D, H, C, W) with ``channel_axis=3``; gs and gq (B, C)."""
     dt = y.dtype
-    bc = (y.shape[0], 1, y.shape[2], 1, 1)
+    bc = [y.shape[0], 1, 1, 1, 1]
+    bc[channel_axis] = y.shape[channel_axis]
     return gy.to(dt) + gs.to(dt).reshape(bc) + (2.0 * gq).to(dt).reshape(bc) * y
 
 

@@ -1,6 +1,7 @@
 // Shared pieces of the 3x3x3 conv + InstanceNorm-moment kernels
-// (conv3x3_stats.cu, conv3x3_s2_stats.cu): the bf16 tensor-core MMA, the
-// epilogue that rounds the output to bf16 and folds it into per-block
+// (conv3x3_stats.cu, conv3x3_stats_v2.cu, conv3x3_stats_v1.cu,
+// conv3x3_s2_stats.cu): the bf16 tensor-core MMA and the transposing
+// ldmatrix, the staging of a chunk's weights, the epilogue that rounds the output to bf16 and folds it into per-block
 // moment partials, and the second pass that reduces those partials.
 //
 // Moments are deterministic: each block writes its per-channel partial sums
@@ -37,6 +38,34 @@ __device__ __forceinline__ void mma_16816(float (&c)[4], const uint32_t (&a)[4],
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// Four 8x8 bf16 matrices from shared memory, each TRANSPOSED on the way into
+// the fragment: lane l supplies the 16-byte-aligned address of row (l % 8) of
+// matrix (l / 8). With the matrices stored K-major (row = k, 8 contiguous m)
+// the four registers are the A fragment of mma_16816 when matrix 0 holds
+// (m 0-7, k 0-7), 1 (m 8-15, k 0-7), 2 (m 0-7, k 8-15), 3 (m 8-15, k 8-15).
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&a)[4], const bf16* p) {
+  const uint32_t addr = (uint32_t)__cvta_generic_to_shared(p);
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
+      : "r"(addr));
+}
+
+// Stage one chunk's weights: ws[(tap * CO_T + co) * WS + ci] =
+// wt[tap, co0 + co, c0 + ci] for 16 input channels, two 16-byte vectors per
+// (tap, cout) row.
+template <int NTHREADS, int CO_T, int WS>
+__device__ __forceinline__ void stage_weights(bf16* __restrict__ ws, const bf16* __restrict__ wt,
+                                              int Cout_pad, int Cin_pad, int co0, int c0) {
+  for (int e = threadIdx.x; e < 27 * CO_T * 2; e += NTHREADS) {
+    const int half = e & 1, r = e >> 1;
+    const int co = r % CO_T, tap = r / CO_T;
+    const uint4* src = reinterpret_cast<const uint4*>(
+        wt + ((int64_t)tap * Cout_pad + co0 + co) * Cin_pad + c0 + half * 8);
+    *reinterpret_cast<uint4*>(ws + (tap * CO_T + co) * WS + half * 8) = *src;
+  }
 }
 
 // Stage one KC-channel chunk of the input halo into shared memory, channel
@@ -80,12 +109,14 @@ __device__ __forceinline__ void stage_halo(bf16* __restrict__ xs, const bf16* __
 // Store one warp's (MT*16 w) x (NT*8 cout) accumulator tile of output row h
 // as bf16, and fold the ROUNDED values into the block's moment partials.
 // Every thread of the block must call it (it holds a __syncthreads).
-//   ybase: y at (b, d, channel 0, 0, 0); channel stride HWo, row stride Wo.
+//   ybase: y at (b, d, channel 0, row 0, 0); channel stride cstride, row
+//   stride hstride, Wo columns ((D, C, H, W): H*W and W; (D, H, C, W): W and
+//   C*W).
 //   partial slot of channel co0 + j: psum[pbase + j * nblk].
 template <int MT, int NT, int NWARPS>
-__device__ __forceinline__ void store_tile_and_moments(
-    const float (&acc)[MT][NT][4], bf16* __restrict__ ybase, int64_t HWo, int Wo,
-    int h, bool h_ok, int w0, int co0, int Cout,
+__device__ __forceinline__ void store_tile_and_moments_strided(
+    const float (&acc)[MT][NT][4], bf16* __restrict__ ybase, int64_t cstride, int64_t hstride,
+    int Wo, int h, bool h_ok, int w0, int co0, int Cout,
     float (*red_s)[NT * 8], float (*red_q)[NT * 8],
     float* __restrict__ psum, float* __restrict__ psq, int64_t pbase, int64_t nblk) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -105,7 +136,7 @@ __device__ __forceinline__ void store_tile_and_moments(
         const int co = co0 + nt * 8 + 2 * t + (r & 1);
         if (h_ok && w < Wo && co < Cout) {
           const bf16 v = __float2bfloat16_rn(acc[mt][nt][r]);
-          ybase[(int64_t)co * HWo + (int64_t)h * Wo + w] = v;
+          ybase[(int64_t)co * cstride + (int64_t)h * hstride + w] = v;
           const float f = __bfloat162float(v);
           s[nt][r & 1] += f;
           q[nt][r & 1] += f * f;
@@ -145,6 +176,17 @@ __device__ __forceinline__ void store_tile_and_moments(
     psum[pbase + (int64_t)threadIdx.x * nblk] = ts;
     psq[pbase + (int64_t)threadIdx.x * nblk] = tq;
   }
+}
+
+// The (D, C, H, W) output: channel stride HWo, row stride Wo.
+template <int MT, int NT, int NWARPS>
+__device__ __forceinline__ void store_tile_and_moments(
+    const float (&acc)[MT][NT][4], bf16* __restrict__ ybase, int64_t HWo, int Wo,
+    int h, bool h_ok, int w0, int co0, int Cout,
+    float (*red_s)[NT * 8], float (*red_q)[NT * 8],
+    float* __restrict__ psum, float* __restrict__ psq, int64_t pbase, int64_t nblk) {
+  store_tile_and_moments_strided<MT, NT, NWARPS>(acc, ybase, HWo, Wo, Wo, h, h_ok, w0, co0, Cout,
+                                                 red_s, red_q, psum, psq, pbase, nblk);
 }
 
 // Second pass: sums[b, co] = sum over blocks of psum[b, co, :] (and sqs),

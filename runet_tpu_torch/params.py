@@ -7,7 +7,10 @@ modules reuse the flax names, so each key maps to one state_dict entry:
 
 - ``.../ConvNormAct_i/kernel`` (3, 3, 3, Cin, Cout): kept as is;
 - ``dec*/Conv_0/kernel`` (1, 1, 1, C, 8F) → (C, 8F);
-- head ``Conv_0/kernel`` (1, 1, 1, C, K) → (C, K), ``Conv_0/bias`` (K,);
+- ``dec*/ConvTranspose_0/kernel`` (2, 2, 2, C, F): kept as is
+  (``upsample_mode="convtranspose"``);
+- head ``Conv_0/kernel`` and the deep-supervision heads ``ds{1,2}/kernel``
+  (1, 1, 1, C, K) → (C, K), with their biases (K,);
 - ``.../InstanceNorm_0/{scale,bias}`` (C,).
 
 Loading into the model casts each tensor to its parameter's dtype (conv and

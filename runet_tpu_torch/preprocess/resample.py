@@ -84,6 +84,34 @@ def resample_to_spacing(x: torch.Tensor, src_spacing, dst_spacing,
     return resample(x, out_shape, scale, method)
 
 
+def resample_labels_onehot(labels: torch.Tensor, out_shape: tuple[int, int, int],
+                           scale: tuple[float, float, float], num_classes: int) -> torch.Tensor:
+    """One-hot → trilinear → argmax label resampling with a static scale
+    (the host-built f64-position matrices of ``resample``): smoother label
+    boundaries than nearest, still integer output. Runs in bf16 as the JAX
+    package does (bf16 weights and one-hot values, f32 accumulation, the
+    result re-rounded to bf16 after each axis); axes whose size and scale
+    leave them unchanged are skipped; argmax takes the FIRST maximum."""
+    out = torch.nn.functional.one_hot(labels.long(), num_classes).to(torch.bfloat16)
+    for axis in range(3):
+        if out.shape[axis] != out_shape[axis] or scale[axis] != 1.0:
+            W = torch.from_numpy(_interp_matrix(out.shape[axis], out_shape[axis],
+                                                float(scale[axis]), "linear"))
+            W = W.to(labels.device).to(torch.bfloat16)
+            out = _apply_axis(out.float(), axis, W.float()).to(torch.bfloat16)
+    return torch.argmax(out, dim=-1).to(labels.dtype)
+
+
+def numpy_reference_resample(x: np.ndarray, out_shape: tuple[int, int, int],
+                             scale: tuple[float, float, float], order: int = 1) -> np.ndarray:
+    """scipy golden oracle with the same coordinate convention (tests only)."""
+    from scipy.ndimage import map_coordinates
+
+    grids = [np.clip(np.arange(out_shape[a]) * scale[a], 0, x.shape[a] - 1) for a in range(3)]
+    coords = np.meshgrid(*grids, indexing="ij")
+    return map_coordinates(x.astype(np.float32), coords, order=order, mode="nearest")
+
+
 def _interp_matrix_traced(in_size: int, out_size: int, scale, method: str,
                           device=None) -> torch.Tensor:
     """(out_size, in_size) f32 interpolation matrix for one axis.

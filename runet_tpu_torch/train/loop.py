@@ -6,9 +6,11 @@ with the JAX package's event schedule after each step (log, patch
 validation, full-volume validation, checkpoints) and resume from the latest
 checkpoint.
 
-One device only: a multi-device request (``mesh``),
-``steps_per_dispatch > 1`` and elastic augmentation raise
-``NotImplementedError``.
+``steps_per_dispatch = K > 1`` runs K micro-steps per call on a (K, B, ...)
+superbatch with no host read between them; a chunk starts K-aligned and
+spans a full K, and the K-misaligned resume case and the tail of a run fall
+back to single steps on slices of the same superbatch. One device only: a
+multi-device request (``mesh``) raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -27,7 +29,12 @@ from runet_tpu_torch.data.sampler import sample_batch
 from runet_tpu_torch.models.unet3d import create_train_model, init_params
 from runet_tpu_torch.train.checkpoint import CheckpointManager
 from runet_tpu_torch.train.metrics import MetricsLogger
-from runet_tpu_torch.train.state import create_train_state, make_eval_step, make_train_step
+from runet_tpu_torch.train.state import (
+    create_train_state,
+    make_eval_step,
+    make_multi_train_step,
+    make_train_step,
+)
 
 
 VAL_PATCHES = 8
@@ -114,10 +121,18 @@ def train(
             )
     if mesh is not None:
         raise NotImplementedError("multi-device data parallelism is not ported yet")
-    if cfg.train.steps_per_dispatch > 1:
-        raise NotImplementedError("steps_per_dispatch > 1 is not ported yet")
-    if cfg.train.elastic:
-        raise NotImplementedError("elastic augmentation is not ported yet")
+    K = max(1, cfg.train.steps_per_dispatch)
+    if K > 1:
+        intervals = {"log_every": log_every, "val_every": cfg.train.val_every,
+                     "ckpt_every": cfg.train.ckpt_every}
+        if cfg.train.val_full_every:
+            intervals["val_full_every"] = cfg.train.val_full_every
+        bad = {n: v for n, v in intervals.items() if v % K}
+        if bad:
+            # A chunk only stops at multiples of K, so a misaligned interval
+            # would silently skip its events.
+            raise ValueError(f"steps_per_dispatch={K} requires intervals divisible by it; "
+                             f"got {bad}")
     dev = resolve_device(device)
 
     if cases is None:
@@ -148,19 +163,20 @@ def train(
     logger.write_config(cfg.to_json())
 
     loss_kw = {"tversky_alpha": cfg.train.tversky_alpha, "tversky_beta": cfg.train.tversky_beta}
-    train_step = make_train_step(model, augment=cfg.train.augment, loss_kwargs=loss_kw)
+    step_kw = dict(augment=cfg.train.augment, elastic=cfg.train.elastic, loss_kwargs=loss_kw)
+    train_step = make_train_step(model, **step_kw)
+    multi_step = make_multi_train_step(model, K, **step_kw) if K > 1 else None
     eval_step = make_eval_step(model)
     loader = PatchLoader(cases, batch_size=batch, patch_size=cfg.train.patch_size,
-                         fg_prob=cfg.train.fg_prob, seed=cfg.train.seed, device=dev)
+                         fg_prob=cfg.train.fg_prob, seed=cfg.train.seed, device=dev,
+                         stack_steps=K)
     generators = (torch.Generator(), torch.Generator(device=dev))
 
     def run_single(images, labels, global_step):
         if not cfg.train.augment:
             return train_step(state, images, labels)
-        s = _step_seed(cfg.train.seed, global_step)
-        generators[0].manual_seed(s)
-        generators[1].manual_seed(s)
-        return train_step(state, images, labels, generators)
+        return train_step(state, images, labels, generators,
+                          _step_seed(cfg.train.seed, global_step))
 
     aux = {}
     t_last = time.monotonic()
@@ -202,10 +218,28 @@ def train(
         step = start_step
         while step < steps:
             images, labels = next(loader)
-            aux = run_single(images, labels, step)
-            step += 1
-            steps_since_log += 1
-            post_step(step, aux)
+            if K == 1:
+                aux = run_single(images, labels, step)
+                step += 1
+                steps_since_log += 1
+                post_step(step, aux)
+                continue
+            chunk = min(K - step % K, steps - step)
+            if chunk == K:
+                if cfg.train.augment:
+                    seeds = [_step_seed(cfg.train.seed, step + i) for i in range(K)]
+                    aux = multi_step(state, images, labels, generators, seeds)
+                else:
+                    aux = multi_step(state, images, labels)
+                step += K
+                steps_since_log += K
+                post_step(step, aux)
+            else:
+                for i in range(chunk):
+                    aux = run_single(images[i], labels[i], step)
+                    step += 1
+                    steps_since_log += 1
+                    post_step(step, aux)
     finally:
         loader.close()
         logger.close()

@@ -73,6 +73,33 @@ def dice_ce_loss(
     return loss, {"loss": loss, "dice_loss": dl, "ce_loss": ce}
 
 
+def deep_supervised_loss(logits: torch.Tensor, aux_logits: list, labels: torch.Tensor,
+                         include_background: bool = False, **loss_kwargs):
+    """Multi-scale compound loss: the full-resolution ``dice_ce_loss`` plus
+    the same loss on each aux head's logits against stride-sliced labels
+    (``labels[::s]``), with halving weights (1, 1/2, 1/4) normalised to sum
+    to 1. ``aux_logits`` is ordered [level 1, level 2] (stride 2**level), as
+    ``UNet3D(..., deep_outputs=True)`` returns it; an empty list gives the
+    plain loss.
+
+    aux dict: ``loss`` is the weighted multi-scale total; ``dice_loss`` and
+    ``ce_loss`` stay the unweighted full-resolution components;
+    ``ds_aux_loss`` is the weighted aux contribution."""
+    total, aux = dice_ce_loss(logits, labels, include_background=include_background,
+                              **loss_kwargs)
+    weights = [1.0] + [0.5 ** (i + 1) for i in range(len(aux_logits))]
+    wsum = sum(weights)
+    total = total * (weights[0] / wsum)
+    ds_aux = torch.zeros((), dtype=torch.float32, device=logits.device)
+    for i, lg in enumerate(aux_logits):
+        stride = labels.shape[1] // lg.shape[1]
+        lab_s = labels[:, ::stride, ::stride, ::stride]
+        l_i, _ = dice_ce_loss(lg, lab_s, include_background=include_background, **loss_kwargs)
+        ds_aux = ds_aux + l_i * (weights[i + 1] / wsum)
+    total = total + ds_aux
+    return total, dict(aux, loss=total, ds_aux_loss=ds_aux)
+
+
 def hard_dice_per_class(pred_labels: torch.Tensor, gt_labels: torch.Tensor,
                         num_classes: int) -> torch.Tensor:
     """Per-class Dice of an argmaxed prediction, (K,) f32; a class absent

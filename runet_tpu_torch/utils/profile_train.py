@@ -1,9 +1,12 @@
-"""Where one fine_kits training step spends its time on the card.
+"""Where one training step spends its time on the card.
 
     python -m runet_tpu_torch.utils.profile_train [--out PATH]
+        [--preset fine_kits|renal_anatomy] [--fused-kernel v2m|v2|v1]
+        [--deep-supervision] [--remat]
 
-Builds the full-width fine_kits train model (base 32, max 320, 5 levels;
-seeded init), takes one fixed 128³ batch of 2 phantom patches (seeds 0 and
+Builds the preset's full-width train model (fine_kits unless named: base
+32, max 320, 5 levels; seeded init; the model switches as given), takes one
+fixed 128³ batch of 2 phantom patches (seeds 0 and
 1, normalized with the preset's HU window and stats), warms up 3 steps,
 times 10 synchronized steps (host clock; median), and profiles 3
 more under ``torch.profiler`` to sum the device time per kernel and per
@@ -35,11 +38,14 @@ from runet_tpu_torch.utils.device_time import device_rows, group_device_time
 # Device-time groups, by substring of the kernel name (first match wins).
 GROUPS = [
     ("conv3x3_stats (stride-1 forward and dx)", ("conv3x3_stats_kernel",)),
+    ("conv3x3_stats_v2 (stride-1 forward and dx)", ("conv3x3_stats_v2_kernel",)),
+    ("conv3x3_stats_v1 (stride-1 forward and dx)", ("conv3x3_stats_v1_kernel",)),
     ("conv3x3_s2_stats (stride-2 forward)", ("conv3x3_s2_stats_kernel",)),
     ("conv3x3_dw (stride-1 weight gradient)", ("conv3x3_dw_kernel<1>",)),
     ("conv3x3_s2_dw (stride-2 weight gradient)", ("conv3x3_dw_kernel<2>",)),
     ("split and moment reductions (2nd passes)", ("reduce_splits", "reduce_moments")),
-    ("cuDNN (stride-2 dx, transposed conv)", ("dgrad", "cudnn::", "implicit_convolve")),
+    ("cuDNN (stride-2 dx; v1 weight gradient; transposed-conv upsample)",
+     ("dgrad", "wgrad", "cudnn::", "cudnn_", "implicit_convolve")),
     ("matmul (projection, head, zoom)", ("gemm", "Gemm", "cutlass", "ampere_")),
     ("copies / layout", ("copy", "Copy", "cat", "Cat", "transpose", "permute", "Memcpy",
                          "Memset", "flip")),
@@ -65,11 +71,19 @@ def fixed_batch(cfg, device):
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default="profile_train.json")
+    ap.add_argument("--preset", default="fine_kits", choices=["fine_kits", "renal_anatomy"])
+    ap.add_argument("--fused-kernel", default=None, choices=["v2m", "v2", "v1"])
+    ap.add_argument("--deep-supervision", action="store_true")
+    ap.add_argument("--remat", action="store_true")
     args = ap.parse_args(argv)
     dev = resolve_device()
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           check=True, capture_output=True, text=True).stdout.strip()
-    cfg = get_config("fine_kits")
+    cfg = get_config(args.preset)
+    mcfg = dataclasses.replace(cfg.model, deep_supervision=args.deep_supervision,
+                               remat=args.remat,
+                               fused_kernel=args.fused_kernel or cfg.model.fused_kernel)
+    cfg = dataclasses.replace(cfg, model=mcfg)
     tcfg = dataclasses.replace(cfg.train, lr_schedule="const", warmup_steps=0, lr=1e-4)
     model = init_params(create_train_model(cfg.model, dev), torch.Generator().manual_seed(0))
     state = create_train_state(model, tcfg)
@@ -103,7 +117,9 @@ def main(argv=None):
     top = sorted(rows, key=lambda r: -r[1])[:20]
     summary = {
         "card": card,
-        "config": "fine_kits full width, 128^3 patch, batch 2, no augmentation",
+        "config": f"{args.preset} full width, 128^3 patch, batch 2, no augmentation, "
+                  f"fused_kernel={mcfg.fused_kernel}, deep_supervision={mcfg.deep_supervision}, "
+                  f"remat={mcfg.remat}",
         "step_ms_median": statistics.median(times) * 1e3,
         "step_ms_all": [t * 1e3 for t in times],
         "imgs_per_s": cfg.train.batch_size / statistics.median(times),

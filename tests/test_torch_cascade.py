@@ -199,13 +199,69 @@ def test_entry_points_default_to_cuda():
 
 
 def test_unported_options_raise():
+    """The options this test once expected ``NotImplementedError`` from
+    (``roi_batch > 1``, ``InferConfig.tta``) now run: each gives the JAX
+    package's labels on the oracle cascade. Nothing on the single-device
+    serving path is left to raise."""
     img, _ = _label_image()
-    _, _, tcoarse, tfine = _bundles()
-    with pytest.raises(NotImplementedError):
-        tc.predict_case(tcoarse, tfine, img, SPACING, CascadeConfig(roi_batch=2), device="cpu")
-    tta = dataclasses.replace(tfine, infer=InferConfig(tta=True))
-    with pytest.raises(NotImplementedError):
-        tc.predict_volume(tta, img, SPACING, device="cpu")
+    jcoarse, jfine, tcoarse, tfine = _bundles()
+    want = jc.predict_case(jcoarse, jfine, img, SPACING, JCascade(roi_batch=2, **CASCADE))
+    got = tc.predict_case(tcoarse, tfine, img, SPACING, CascadeConfig(roi_batch=2, **CASCADE),
+                          device="cpu")
+    np.testing.assert_array_equal(got, want)
+    jtta = dataclasses.replace(jfine, infer=JInfer(patch_size=(32,) * 3, tta=True))
+    ttta = dataclasses.replace(tfine, infer=InferConfig(patch_size=(32,) * 3, tta=True))
+    np.testing.assert_array_equal(tc.predict_volume(ttta, img, SPACING, device="cpu"),
+                                  jc.predict_volume(jtta, img, SPACING))
+
+
+def _small_unet_bundles():
+    """Both stages as small U-Nets (the modules and their caches are shared
+    by every case that runs through the bundles)."""
+    hu = dict(hu_window=(-79.0, 304.0), hu_stats=None)
+    mc = dict(base_features=4, max_features=8, num_levels=3, compute_dtype="float32")
+    out = []
+    for k, sp, seed in [(2, (2.0,) * 3, 0), (3, (1.0,) * 3, 1)]:
+        from runet_tpu_torch.models.unet3d import init_params as t_init
+
+        tm = t_init(UNet3D(ModelConfig(num_classes=k, **mc), device="cpu"),
+                    torch.Generator().manual_seed(seed)).eval()
+        out.append(tc.ModelBundle(lambda _p, w, _m=tm: _m(w), None, k,
+                                  PreprocessConfig(spacing=sp, **hu),
+                                  InferConfig(patch_size=(32,) * 3)))
+    return out
+
+
+def test_predict_cases_workers_equal_serial_on_mixed_shapes():
+    """Two worker threads share the bundles' modules (with their packed
+    weight caches) and the cached resample matrices. Six cases of mixed
+    shapes and spacings, pipelined three times over, must equal serial
+    ``predict_case`` voxel for voxel every time: a race on shared state
+    would show as a differing or failing case. The interpreter's switch
+    interval is shortened so the threads interleave far more often than
+    they would by default."""
+    import sys
+
+    cas = CascadeConfig(**CASCADE)
+    cases = []
+    for i, (shape, sp) in enumerate([((64, 64, 48), (1.0, 1.0, 1.5)), ((48, 56, 40), (1.2, 1.0, 1.5)),
+                                     ((72, 48, 32), (1.0, 1.3, 2.0)), ((56, 56, 56), (1.1, 1.1, 1.1)),
+                                     ((64, 40, 48), (0.9, 1.4, 1.5)), ((40, 72, 36), (1.5, 1.0, 1.8))]):
+        img, _ = make_phantom(shape, spacing=sp, num_classes=3, seed=i)
+        cases.append((img, sp))
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    try:
+        for coarse, fine in (_bundles()[2:], _small_unet_bundles()):
+            serial = [tc.predict_case(coarse, fine, img, sp, cas, device="cpu")
+                      for img, sp in cases]
+            for _ in range(3):
+                got = list(tc.predict_cases(coarse, fine, cases, cas, workers=2, device="cpu"))
+                assert len(got) == len(serial)
+                for g, w in zip(got, serial):
+                    np.testing.assert_array_equal(g, w)
+    finally:
+        sys.setswitchinterval(interval)
 
 
 def test_postprocess_matches_jax():

@@ -64,6 +64,80 @@ def test_conv3x3_stats_kernel_matches_plain(cuda, B, D, C, H, W, Cout):
     assert_conv_stats_close(got, want)
 
 
+def _to_layout(t, version):
+    """(B, D, C, H, W) → the layout the kernel of ``version`` takes."""
+    return t.permute(0, 1, 3, 2, 4).contiguous() if version == "v1" else t
+
+
+def _variant(version):
+    """(differentiable wrapper, plain version) of a fused_kernel value."""
+    if version == "v1":
+        return fused_block.conv_in_stats_dhcw_batch, fused_block.conv3x3_stats_dhcw_plain
+    plain = fused_block.conv3x3_stats_v2_plain if version == "v2" \
+        else fused_block.conv3x3_stats_plain
+    return (lambda x, k, p=None: fused_block.conv_in_stats_dchw_batch(x, k, p, version)), plain
+
+
+@pytest.mark.parametrize("version", ["v2", "v1"])
+@pytest.mark.parametrize("B,D,C,H,W,Cout", [
+    (1, 4, 16, 8, 64, 32),
+    (1, 6, 1, 10, 40, 24),    # Cin = 1 (enc0), Cout not a tile multiple
+    (2, 5, 48, 7, 19, 24),    # ragged tiles, decoder concat width, B = 2
+    (1, 3, 70, 3, 5, 40),     # tiny deep-level extents
+    (1, 8, 320, 8, 8, 320),   # the bottleneck: one block's tile is most of the volume
+])
+def test_conv3x3_stats_variant_kernels_match_plain(cuda, version, B, D, C, H, W, Cout):
+    x, k = _inputs((B, D, C, H, W), C, Cout, 0, cuda)
+    x = _to_layout(x, version)
+    conv, plain = _variant(version)
+    got = conv(x, k, pack_weight(k))
+    want = plain(x, k)
+    torch.cuda.synchronize()
+    assert_conv_stats_close(got, want)
+
+
+@pytest.mark.parametrize("version", ["v2", "v1"])
+def test_conv3x3_stats_variant_kernels_are_deterministic_and_counted(cuda, version):
+    x, k = _inputs((1, 8, 32, 16, 64), 32, 32, 1, cuda)
+    x = _to_layout(x, version)
+    conv, plain = _variant(version)
+    names = ("launches", "v2_launches", "v1_launches")
+    before = [getattr(fused_block, n) for n in names]
+    a = conv(x, k)
+    b = conv(x, k)
+    plain(x, k)
+    for u, v in zip(a, b):
+        assert torch.equal(u, v)
+    after = [getattr(fused_block, n) for n in names]
+    own = names.index(f"{version}_launches")
+    assert [q - p for p, q in zip(before, after)] == [2 if i == own else 0 for i in range(3)]
+    with pytest.raises(TypeError):
+        conv(x.float(), k)
+
+
+@pytest.mark.parametrize("version", ["v2", "v1"])
+def test_conv_variant_backward_on_card_matches_cpu(cuda, version):
+    """ConvStatsV2 / ConvStatsV1 on the card (dx through their own kernel)
+    against the same Functions on the CPU; tolerances as in
+    test_conv_backward_on_card_matches_cpu."""
+    conv, _ = _variant(version)
+    x, k = _inputs((2, 4, 24, 8, 16), 24, 40, 10, cuda)
+    x = _to_layout(x, version)
+    coef = torch.from_numpy(np.random.default_rng(11).standard_normal(40).astype(np.float32))
+    grads = []
+    for dev in (cuda, torch.device("cpu")):
+        xd = x.detach().to(dev).requires_grad_()
+        kd = k.detach().to(dev).requires_grad_()
+        y, m, q = conv(xd, kd)
+        c = coef.to(dev)
+        loss = (y.float() ** 2).sum() * 1e-3 + (m * c).sum() + (q * c * c).sum()
+        loss.backward()
+        grads.append((xd.grad.float().cpu(), kd.grad.float().cpu()))
+    for got, want in zip(grads[0], grads[1]):
+        tol = 2.0 ** -7 * want.abs() + 1e-3 * want.abs().max()
+        assert ((got - want).abs() <= tol).all(), (got - want).abs().max()
+
+
 def test_conv3x3_stats_kernel_is_deterministic(cuda):
     x, k = _inputs((1, 8, 32, 16, 64), 32, 32, 1, cuda)
     a = fused_block.conv_in_stats_dchw_batch(x, k)

@@ -10,6 +10,8 @@ on HU-scale data); a per-volume z-score reduces its mean and std in another
 order (rtol 2e-5).
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -124,6 +126,101 @@ def test_augment_draws_by_counts():
                               torch.Generator().manual_seed(2))
     assert oi.shape == images.shape and ol.shape == labels.shape
     assert set(np.unique(ol.numpy())) <= {0, 1, 2}
+
+
+@pytest.mark.parametrize("n,g", [(16, 4), (13, 4), (9, 3)])
+def test_field_upsample_matrix_matches_jax(n, g):
+    np.testing.assert_array_equal(ta.field_upsample_matrix(n, g), ja._field_upsample_matrix(n, g))
+
+
+@pytest.mark.parametrize("amp,c", [(0.0, 1), (3.7, 1), (8.0, 2)])
+def test_elastic_warp_matches_jax_with_fixed_field(amp, c, monkeypatch):
+    """The apply half against ``_rand_elastic``'s warp with the SAME field
+    and amplitude (JAX's draws replaced by the fixed values): image within
+    1e-4 (two f32 trilinear sums in different orders), labels equal."""
+    import jax
+
+    img, lab = _img_lab(5, shape=(12, 10, 9), c=c)
+    field = np.random.default_rng(6).standard_normal((3, 4, 4, 4)).astype(np.float32)
+    monkeypatch.setattr(jax.random, "normal", lambda key, shape, dtype: jnp.asarray(field))
+    monkeypatch.setattr(jax.random, "uniform",
+                        lambda key, shape, minval, maxval: jnp.float32(amp))
+    wi, wl = ja._rand_elastic(jax.random.key(0), jnp.asarray(img), jnp.asarray(lab))
+    gi, gl = ta.apply_elastic(torch.from_numpy(img), torch.from_numpy(lab),
+                              torch.from_numpy(field), amp)
+    assert gi.dtype == torch.float32 and gl.dtype == torch.int32
+    np.testing.assert_allclose(gi.numpy(), np.asarray(wi), atol=1e-4)
+    np.testing.assert_array_equal(gl.numpy(), np.asarray(wl))
+    if amp == 0.0:  # the identity stays in distribution
+        np.testing.assert_allclose(gi.numpy(), img, atol=1e-6)
+        np.testing.assert_array_equal(gl.numpy(), lab)
+
+
+def test_elastic_draws_and_order():
+    """With ``elastic`` the draw adds a unit-normal (3, 4, 4, 4) field and an
+    amplitude in [0, 8), after the other choices (which do not change), and
+    augment_one applies the warp between zoom and intensity."""
+    plain = ta.draw_params(torch.Generator().manual_seed(3), (8, 8, 4))
+    drawn = ta.draw_params(torch.Generator().manual_seed(3), (8, 8, 4), elastic=True)
+    assert plain.elastic_field is None
+    assert dataclasses.replace(drawn, elastic_field=None, elastic_amp=0.0) == plain
+    assert tuple(drawn.elastic_field.shape) == (3, 4, 4, 4)
+    gen = torch.Generator().manual_seed(4)
+    amps = np.array([ta.draw_params(gen, (8, 8, 4), elastic=True).elastic_amp
+                     for _ in range(2000)])
+    assert 0.0 <= amps.min() and amps.max() < 8.0 and abs(amps.mean() - 4.0) < 0.2
+    img, lab = _img_lab(7, shape=(10, 10, 8))
+    noise = torch.zeros(img.shape)
+    p = dataclasses.replace(drawn, elastic_amp=2.5)
+    gi, gl = ta.augment_one(torch.from_numpy(img), torch.from_numpy(lab), p, noise)
+    q = dataclasses.replace(p, elastic_field=None)
+    zi, zl = ta.augment_one(torch.from_numpy(img), torch.from_numpy(lab),
+                            dataclasses.replace(q, scale=1.0, shift=0.0), noise)
+    wi, wl = ta.apply_elastic(zi, zl, p.elastic_field, 2.5)
+    np.testing.assert_allclose(gi.numpy(), (wi * p.scale + p.shift).numpy(), atol=1e-6)
+    np.testing.assert_array_equal(gl.numpy(), wl.numpy())
+    oi, ol = ta.augment_batch(torch.from_numpy(img)[None], torch.from_numpy(lab)[None],
+                              torch.Generator().manual_seed(1), torch.Generator().manual_seed(2),
+                              elastic=True)
+    assert oi.shape == (1, *img.shape) and set(np.unique(ol.numpy())) <= {0, 1, 2}
+
+
+def test_fingerprint_matches_jax(tmp_path):
+    """The same dataset and seed give the same fingerprint dict, suggested
+    preprocess and plan JSON in both packages (subsampling included)."""
+    from runet_tpu.data import fingerprint as jf
+    from runet_tpu_torch.data import fingerprint as tf
+
+    write_phantom_dataset(tmp_path / "data", num_cases=3, shape=(40, 36, 24))
+    for kw in (dict(), dict(limit=2, fg_sample_per_case=500, pooled_cap=800, seed=3)):
+        want = jf.fingerprint_dataset(tmp_path / "data", **kw)
+        got = tf.fingerprint_dataset(tmp_path / "data", **kw)
+        assert got == want
+        assert dataclasses.asdict(tf.suggest_preprocess(got)) == \
+            dataclasses.asdict(jf.suggest_preprocess(want))
+        assert tf.plan_json(got) == jf.plan_json(want)
+    pp = tf.suggest_preprocess({"spacing_median": [1.0, 1.0, 2.0]})
+    assert pp.spacing == (1.0, 1.0, 2.0) and pp.hu_window == PreprocessConfig().hu_window
+    with pytest.raises(ValueError):
+        tf.fingerprint_dataset(tmp_path / "empty")
+
+
+def test_patch_loader_stacks_superbatches(tmp_path):
+    """stack_steps = K: one item is K consecutive draws of the unstacked
+    loader, stacked."""
+    cases, _ = _cases(tmp_path, n=1)
+    stacked = PatchLoader(cases, batch_size=2, patch_size=(8, 8, 8), seed=4, device="cpu",
+                          stack_steps=3)
+    single = PatchLoader(cases, batch_size=2, patch_size=(8, 8, 8), seed=4, device="cpu")
+    try:
+        images, labels = next(stacked)
+        assert images.shape == (3, 2, 8, 8, 8, 1) and labels.shape == (3, 2, 8, 8, 8)
+        for i in range(3):
+            si, sl = next(single)
+            assert torch.equal(images[i], si) and torch.equal(labels[i], sl)
+    finally:
+        stacked.close()
+        single.close()
 
 
 def _cases(tmp_path, n=2, shape=(40, 36, 24)):

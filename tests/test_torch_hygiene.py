@@ -42,3 +42,27 @@ def test_package_imports_with_jax_blocked():
             + "".join(f"import {m}\n" for m in mods)
             + "import runpy; runpy.run_path('chip_smoke.py', run_name='not_main')\n")
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True, timeout=120)
+
+
+def test_only_the_multi_device_request_is_left_unported():
+    """No single-device switch of the model, the cascade or the trainer
+    raises NotImplementedError any more; what does is ``train(mesh=...)``."""
+    raising = []
+    for path in SOURCES:
+        for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+            if isinstance(node, ast.Raise) and node.exc is not None:
+                name = getattr(getattr(node.exc, "func", node.exc), "id", None)
+                if name == "NotImplementedError":
+                    raising.append((str(path.relative_to(ROOT)), node.lineno))
+    assert [p for p, _ in raising] == ["runet_tpu_torch/train/loop.py"], raising
+
+
+def test_every_kernel_module_names_a_source_that_exists():
+    """Each ``*SOURCE`` a kernel module names is a ``.cu`` under csrc/, and
+    every ``.cu`` there is named by one (no orphan, no missing kernel)."""
+    from runet_tpu_torch.kernels import build, fused_block, strided_conv
+
+    named = {v for mod in (fused_block, strided_conv) for k, v in vars(mod).items()
+             if k.endswith("SOURCE") and isinstance(v, str)}
+    on_disk = {p.stem for p in build.CSRC.glob("*.cu")}
+    assert named == on_disk and len(named) == 6

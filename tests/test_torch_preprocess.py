@@ -65,6 +65,34 @@ def test_resample_labels_onehot_matches_jax_exactly(num_classes):
     np.testing.assert_array_equal(got, want)
 
 
+@pytest.mark.parametrize("num_classes", [3, 5])
+def test_static_resample_labels_onehot_matches_jax_exactly(num_classes):
+    from runet_tpu.preprocess.resample import resample_labels_onehot as jax_static
+    from runet_tpu_torch.preprocess.resample import resample_labels_onehot
+
+    _, seg = make_phantom((40, 36, 20), num_classes=num_classes, seed=3)
+    for out, sc in [((33, 46, 48), (0.8, 1.27, 0.375)), ((40, 18, 20), (1.0, 2.0, 1.0))]:
+        want = np.asarray(jax_static(jnp.asarray(seg.astype(np.int32)), out, sc, num_classes))
+        got = resample_labels_onehot(torch.from_numpy(seg.astype(np.int32)), out, sc,
+                                     num_classes)
+        assert got.dtype == torch.int32
+        np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("order", [0, 1])
+def test_numpy_reference_resample_matches_jax_and_the_resampler(order):
+    from runet_tpu.preprocess.resample import numpy_reference_resample as jax_ref
+    from runet_tpu_torch.preprocess.resample import numpy_reference_resample, resample
+
+    x = np.random.default_rng(4).normal(size=(12, 10, 8)).astype(np.float32)
+    out, sc = (16, 8, 5), (0.7, 1.3, 1.6)
+    ref = numpy_reference_resample(x, out, sc, order=order)
+    np.testing.assert_array_equal(ref, jax_ref(x, out, sc, order=order))
+    # The oracle shares the resampler's coordinate convention.
+    got = resample(torch.from_numpy(x), out, sc, "linear" if order else "nearest").numpy()
+    np.testing.assert_allclose(got, ref, atol=1e-5)
+
+
 @pytest.mark.parametrize("stats", [(100.93, 76.9), None])
 def test_normalize_matches_jax(stats):
     x = np.random.default_rng(3).normal(size=(10, 9, 8)).astype(np.float32) * 400

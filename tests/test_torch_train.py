@@ -40,6 +40,7 @@ from runet_tpu_torch.train.state import (
     create_train_state,
     make_eval_step,
     make_lr_schedule,
+    make_multi_train_step,
     make_optimizer,
     make_train_step,
 )
@@ -286,14 +287,90 @@ def test_validate_full_and_config_errors(tmp_path):
     with pytest.raises(ValueError, match="multiple"):
         train(tiny_config(val_every=4, val_full_every=6), cases=cases, device="cpu",
               out_dir=tmp_path / "r1")
+    # A chunk stops only at multiples of steps_per_dispatch: every interval
+    # must divide by it.
+    with pytest.raises(ValueError, match="divisible"):
+        train(tiny_config(steps_per_dispatch=4), cases=cases, device="cpu",
+              out_dir=tmp_path / "r2", log_every=6)
+    # Multi-device data parallelism is the one request that still raises.
     with pytest.raises(NotImplementedError):
-        train(tiny_config(steps_per_dispatch=2), cases=cases, device="cpu",
-              out_dir=tmp_path / "r2")
-    with pytest.raises(NotImplementedError):
-        train(tiny_config(elastic=True), cases=cases, device="cpu", out_dir=tmp_path / "r3",
-              max_steps=1)
-    with pytest.raises(NotImplementedError):
-        create_train_model(ModelConfig(remat=True), device="cpu")
+        train(tiny_config(), cases=cases, device="cpu", out_dir=tmp_path / "r3", mesh=object())
+    assert create_train_model(ModelConfig(remat=True, base_features=4, num_levels=2),
+                              device="cpu").remat
+
+
+def _multi_step_setup(deep):
+    cfg = ModelConfig(num_classes=3, base_features=8, num_levels=3, compute_dtype="float32",
+                      deep_supervision=deep)
+    tcfg = TrainConfig(lr=1e-2, warmup_steps=0, lr_schedule="const")
+    rng = np.random.default_rng(5)
+    images = torch.from_numpy(rng.standard_normal((2, 2, 16, 16, 16, 1)).astype(np.float16))
+    labels = torch.from_numpy(rng.integers(0, 3, (2, 2, 16, 16, 16)).astype(np.uint8))
+
+    def fresh():
+        model = init_params(create_train_model(cfg, device="cpu"),
+                            torch.Generator().manual_seed(1))
+        return model, create_train_state(model, tcfg)
+
+    return fresh, images, labels
+
+
+@pytest.mark.parametrize("augment,elastic,deep", [(False, False, False), (True, True, True)])
+def test_multi_train_step_equals_single_steps(augment, elastic, deep):
+    """steps_per_dispatch = 2: K micro-steps in one call leave the
+    parameters of K single steps bit for bit (the same draws, draw for draw,
+    from the per-step seeds) and return the chunk's mean aux scalars."""
+    fresh, images, labels = _multi_step_setup(deep)
+    seeds = [11, 12]
+    gens = (torch.Generator(), torch.Generator())
+    m1, s1 = fresh()
+    step = make_train_step(m1, augment=augment, elastic=elastic)
+    singles = [step(s1, images[i], labels[i], gens if augment else None,
+                    seeds[i] if augment else None) for i in range(2)]
+    m2, s2 = fresh()
+    multi = make_multi_train_step(m2, 2, augment=augment, elastic=elastic)
+    aux = multi(s2, images, labels, *((gens, seeds) if augment else ()))
+    assert s2.step == 2 and s2.optimizer.count == 2
+    for (n, a), b in zip(m1.named_parameters(), m2.parameters()):
+        assert torch.equal(a, b), n
+    assert ("ds_aux_loss" in aux) == deep
+    for k in aux:
+        np.testing.assert_allclose(float(aux[k]), np.mean([float(a[k]) for a in singles]),
+                                   rtol=1e-6)
+    with pytest.raises(ValueError):
+        multi(s2, images[:1], labels[:1])
+
+
+def test_train_loop_with_every_train_switch(tmp_path, monkeypatch):
+    """``train()`` with deep supervision, elastic warps, remat and
+    steps_per_dispatch = 2 on the CPU: chunked steps, the tail and a
+    K-misaligned resume fall back to single steps on slices of a superbatch,
+    events land on their intervals, ``ds_aux_loss`` is logged."""
+    import dataclasses
+
+    import runet_tpu_torch.train.loop as loop_mod
+
+    # Validation is held elsewhere; here it only has to fire (and save the
+    # checkpoint of the last step).
+    monkeypatch.setattr(loop_mod, "validate_patches", lambda *a, **k: (0.5, np.zeros(3)))
+    write_phantom_dataset(tmp_path / "data", num_cases=2, shape=(48, 48, 32))
+    cfg = tiny_config(steps_per_dispatch=2, elastic=True, val_every=4, ckpt_every=2)
+    cfg = dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, deep_supervision=True, remat=True, num_levels=3, fused_kernel="v1"))
+    state, aux = train(cfg, data_root=tmp_path / "data", out_dir=tmp_path / "run",
+                       max_steps=5, log_every=2, device="cpu")
+    assert state.step == 5 and np.isfinite(float(aux["loss"]))
+    lines = [json.loads(l) for l in (tmp_path / "run" / "metrics.jsonl").read_text().splitlines()]
+    logged = [l for l in lines if "imgs_per_s" in l]
+    assert [l["step"] for l in logged] == [2, 4, 5]
+    assert all("ds_aux_loss" in l and np.isfinite(l["ds_aux_loss"]) for l in logged)
+    ckpt = CheckpointManager(tmp_path / "run" / "ckpt")
+    assert ckpt.latest_step() == 5
+    assert {"ds1.kernel", "ds1.bias"} <= set(ckpt.restore()["params"])
+    # Resume at 5 (not a multiple of 2): one single step, then a full chunk.
+    state2, _ = train(cfg, data_root=tmp_path / "data", out_dir=tmp_path / "run",
+                      max_steps=8, resume=True, log_every=2, device="cpu")
+    assert state2.step == 8 and state2.optimizer.count == 8
 
 
 def test_train_entry_points_default_to_cuda(tmp_path):
