@@ -5,7 +5,7 @@
 Phases (any failure exits non-zero; nothing is caught and printed over):
 
 1. report the card (name and power limit from nvidia-smi);
-2. build the six CUDA kernels from ``runet_tpu_torch/kernels/csrc`` (one
+2. build the ten CUDA kernels from ``runet_tpu_torch/kernels/csrc`` (one
    nvcc per source, started together);
 3. serve: load the committed coarse and fine_kits weights and run
    ``predict_cases`` over three KiTS-scale phantoms (512x512x160 at
@@ -61,25 +61,52 @@ Phases (any failure exits non-zero; nothing is caught and printed over):
    same weights in f32 on the CPU print the floor that bf16 sets. Then the
    renal_anatomy train model with deep supervision under "v2" and "v1", to
    the same gates;
-7. kernel vs plain: each kernel on random inputs at every distinct shape
-   the serve and train phases launched it with, against its plain version
-   on the same inputs, with timings of kernel, plain version and the cuDNN
-   yardstick (bf16 ``F.conv3d`` + sums for the forward kernels, bf16
-   ``torch.nn.grad.conv3d_weight`` for the weight gradients; never called
-   by the port; for the "v1" kernel on its own (B, D, H, C, W) layout, the
-   permutes to and from cuDNN's layout included);
-8. overfit gate: the same full-width model on one fixed 128³ batch of 2,
+7. overfit gate: the same full-width model on one fixed 128³ batch of 2,
    constant lr, no augmentation, 20 steps; the last loss must fall below
    OVERFIT_FRACTION of the first. Prints the warm step median (host clock
    around synchronized steps), images/s, peak device memory, and the
-   kernel launches of one step.
+   kernel launches of one step;
+8. kernel bench: ``python -m runet_tpu_torch.utils.kernel_bench`` run
+   in-process into ``chip_smoke_work/``, the path of the four attic
+   kernels (``kernels/attic``; no model config routes through them, and
+   every main path above must have launched each 0 times): counts set to 0
+   before and read after, the shape of every launch recorded, and the
+   kernels that its CUDA graphs replay added to both (``replay_counting``);
+   every one of the ten kernels must have launched, and every row must
+   carry a finite positive ms for each kernel it names;
+9. kernel vs plain: each kernel on random inputs at every distinct shape
+   the serve, train and kernel-bench phases launched it with, against its
+   plain version on the same inputs, with timings (``utils/latency.py``'s
+   ``chained_ms``) of kernel, plain version and the library yardstick
+   (bf16 ``F.conv3d`` + sums for the forward kernels, without sums for the
+   attic conv, bf16 ``torch.nn.grad.conv3d_weight`` for the weight
+   gradients, ``F.instance_norm`` + ``F.leaky_relu`` for the instance-norm
+   pair; never called by the port; for the "v1" kernel on its own (B, D,
+   H, C, W) layout, the permutes to and from cuDNN's layout included);
+10. attic: the four attic kernels against their plain versions, untimed,
+   at shapes the bench does not launch: the NDHWC conv at (7, 13, 29,
+   5)→11, the NDHWC conv + moments at (6, 9, 11, 24)→40, the instance-norm
+   stats and apply kernels (alone and as the pair) at (1, 8, 8, 8, 320)
+   bf16 and at (1, 3, 5, 7, 20) bf16 and f32. Then the gradient of the
+   attic conv's autograd Function (dx through the kernel, dw by the
+   framework in f32) at two small shapes against autograd through
+   ``F.conv3d`` in true f32.
 
 Tolerances of kernel vs plain. Forward: both accumulate in f32 and round to
 bf16 in different orders, so y may differ by one bf16 ulp (2^-7 relative)
 or, near zero, by 1e-3 of the tensor's largest magnitude; sq-means agree to
-1e-3 relative and means to 1e-3 of the channel rms. Weight gradient: both
+1e-3 relative and means to 1e-3 of the channel rms (the attic convs too).
+Weight gradient: both
 sum exact bf16 products in f32 in different orders; within DW_TOL of the
 same sum over |x|·|g| (a wrong tap is off by the order of that sum).
+Instance-norm stats: f32 sums in different orders, within NORM_SUM_TOL of
+the same sum over |x| (and of Σx²); apply: each f32 operation rounded once
+in the plain version's order, within one ulp of the output dtype (2^-7
+relative for bf16, 2^-22 for f32; expected bit-equal, and the count of
+differing elements is printed); the pair: one ulp plus 1e-5 of the largest
+magnitude (its mean and rstd come from sums taken in another order). Attic
+conv gradient: dx and dw are rounded to bf16 once on both sides, so one
+bf16 ulp plus 1e-3 of the largest magnitude.
 
 The line before the last is the ``kernels`` JSON object, the last line
 ``{"ok": true, "device": {...}}``. Exits non-zero without CUDA.
@@ -93,7 +120,6 @@ import json
 import math
 import shutil
 import statistics
-import subprocess
 import sys
 import threading
 import time
@@ -110,6 +136,7 @@ QUALITY_SHAPE = (192, 192, 64)
 QUALITY_SEED = 7
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core rate
 PEAK_HBM_BYTES = 3.35e12  # H100 SXM HBM3 bandwidth
+PEAK_F32_FLOPS = 67e12  # H100 SXM f32 rate outside the tensor cores
 TRAIN_CASE_SHAPE = (160, 144, 128)
 TRAIN_SPACING = (0.8, 0.8, 0.8)
 TRAIN_STEPS, RESUME_STEPS = 6, 8
@@ -130,6 +157,9 @@ OVERFIT_FRACTION = 0.75  # measured 0.581 (H100 80GB HBM3, 700 W)
 GRAD_COSINE = 0.90
 GRAD_NORM_REL = 0.02
 DW_TOL = 1e-5  # measured at most 2.7e-7 at the train shapes (H100 80GB HBM3, 700 W)
+NORM_SUM_TOL = 1e-5
+ATTIC = ("conv3x3_ndhwc", "conv3x3_ndhwc_stats", "instance_norm_stats",
+         "instance_norm_lrelu_apply")
 WORK = Path(__file__).resolve().parent / "chip_smoke_work"
 
 
@@ -137,42 +167,43 @@ def log(*a):
     print(*a, flush=True)
 
 
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        check=True, capture_output=True, text=True,
-    ).stdout.strip()
-    return out.splitlines()[0]
+def cuda_ms(fn, reps: int) -> float:
+    """Per-call ms of ``fn()``: ``utils/latency.py``'s ``chained_ms``, one
+    warm-up call, ``reps`` calls between two CUDA events."""
+    from runet_tpu_torch.utils.latency import chained_ms
 
-
-def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
-    for _ in range(warmup):
-        fn()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    return chained_ms(fn, (), n=reps, warmup=1)
 
 
 def kernel_counts() -> dict[str, int]:
     from runet_tpu_torch.kernels import fused_block, strided_conv
+    from runet_tpu_torch.kernels.attic import conv3d, conv_v3_deep, fused_norm
 
     return {fused_block.SOURCE: fused_block.launches, strided_conv.SOURCE: strided_conv.launches,
             fused_block.DW_SOURCE: fused_block.dw_launches,
             strided_conv.DW_SOURCE: strided_conv.dw_launches,
             fused_block.V2_SOURCE: fused_block.v2_launches,
-            fused_block.V1_SOURCE: fused_block.v1_launches}
+            fused_block.V1_SOURCE: fused_block.v1_launches,
+            conv3d.SOURCE: conv3d.launches, conv_v3_deep.SOURCE: conv_v3_deep.launches,
+            fused_norm.STATS_SOURCE: fused_norm.stats_launches,
+            fused_norm.APPLY_SOURCE: fused_norm.apply_launches}
 
 
 def reset_counts() -> None:
     from runet_tpu_torch.kernels import fused_block, strided_conv
+    from runet_tpu_torch.kernels.attic import conv3d, conv_v3_deep, fused_norm
 
     fused_block.launches = fused_block.dw_launches = 0
     fused_block.v2_launches = fused_block.v1_launches = 0
     strided_conv.launches = strided_conv.dw_launches = 0
+    conv3d.launches = conv_v3_deep.launches = 0
+    fused_norm.stats_launches = fused_norm.apply_launches = 0
+
+
+def no_attic(counts: dict, phase: str) -> None:
+    """The main paths launch none of the attic kernels."""
+    if any(counts[k] for k in ATTIC):
+        raise AssertionError(f"{phase}: an attic kernel launched on a main path: {counts}")
 
 
 def add_counts(total: dict, counts: dict) -> dict:
@@ -185,41 +216,94 @@ def add_counts(total: dict, counts: dict) -> dict:
 def launch_shapes():
     """Yields {(kernel, x shape, Cout): launches} of every kernel launch made
     inside the block (forward, dx, weight gradient, validation alike; x in
-    the layout the kernel takes), by
-    wrapping the launch functions that the kernel modules call; the
-    wrappers' own counters are untouched. Thread-safe: ``predict_cases``
-    runs cases on worker threads."""
+    the layout the kernel takes; for the instance-norm kernels x as the
+    caller gave it and its C in place of Cout), by wrapping the launch
+    functions that the kernel modules call; the wrappers' own counters are
+    untouched. Thread-safe: ``predict_cases`` runs cases on worker
+    threads."""
     from runet_tpu_torch.kernels import fused_block, strided_conv
+    from runet_tpu_torch.kernels.attic import conv3d, conv_v3_deep, fused_norm
 
     seen: dict[tuple, int] = {}
     lock = threading.Lock()
-    saved = [(m, m.launch_conv_stats, m.launch_conv_dw) for m in (fused_block, strided_conv)]
 
-    def recording(launch, cout_of):
-        def wrapped(name, x, *args):
-            key = (name, tuple(x.shape), int(cout_of(*args)))
-            with lock:
-                seen[key] = seen.get(key, 0) + 1
-            return launch(name, x, *args)
+    def note(key):
+        with lock:
+            seen[key] = seen.get(key, 0) + 1
+
+    def conv(launch, cout_of):
+        def wrapped(name, x, *args, **kw):
+            note((name, tuple(x.shape), int(cout_of(*args))))
+            return launch(name, x, *args, **kw)
         return wrapped
 
-    for m, stats, dw in saved:
-        m.launch_conv_stats = recording(
-            stats, lambda packed, cout, out_dhw, layout="dchw": cout)
-        m.launch_conv_dw = recording(dw, lambda g: g.shape[2])
+    def norm(launch, name):
+        def wrapped(x, *args, **kw):
+            # The key holds no dtype: the held case (phase_kernels) is bf16.
+            if x.dtype != torch.bfloat16:
+                raise AssertionError(f"{name}: a {x.dtype} launch cannot be recorded")
+            note((name, tuple(x.shape), int(x.shape[-1])))
+            return launch(x, *args, **kw)
+        return wrapped
+
+    patches = [(m, "launch_conv_stats", conv(m.launch_conv_stats, lambda packed, cout, *_: cout))
+               for m in (fused_block, strided_conv, conv3d, conv_v3_deep)]
+    patches += [(m, "launch_conv_dw", conv(m.launch_conv_dw, lambda g: g.shape[2]))
+                for m in (fused_block, strided_conv)]
+    patches += [(fused_norm, "instance_norm_stats",
+                 norm(fused_norm.instance_norm_stats, fused_norm.STATS_SOURCE)),
+                (fused_norm, "instance_norm_lrelu_apply",
+                 norm(fused_norm.instance_norm_lrelu_apply, fused_norm.APPLY_SOURCE))]
+    saved = [(m, attr, getattr(m, attr)) for m, attr, _ in patches]
+    for m, attr, f in patches:
+        setattr(m, attr, f)
     try:
         yield seen
     finally:
-        for m, stats, dw in saved:
-            m.launch_conv_stats, m.launch_conv_dw = stats, dw
+        for m, attr, f in saved:
+            setattr(m, attr, f)
+
+
+def replay_counting(scanned, seen: dict, extra: dict):
+    """``scanned`` (``utils/latency.py``'s ``scanned_ms``) that adds to
+    ``extra`` ({kernel: launches}) and to ``seen`` (``launch_shapes``' dict)
+    the kernels its CUDA graph runs and no wrapper counts: the counters
+    count each captured call once, at capture, where nothing runs, and the
+    graph then runs it ``WARM_REPLAYS + reps`` times."""
+    from runet_tpu_torch.utils.latency import WARM_REPLAYS
+
+    def timed(step, x0, iters=30, reps=3):
+        marks = []
+
+        def marked(x):
+            before = (kernel_counts(), dict(seen))
+            y = step(x)
+            marks.append((before, (kernel_counts(), dict(seen))))
+            return y
+
+        ms = scanned(marked, x0, iters=iters, reps=reps)
+        # The last ``iters`` calls are the capture.
+        (c0, s0), _ = marks[-iters]
+        _, (c1, s1) = marks[-1]
+        times = WARM_REPLAYS + reps - 1
+        for k, v in c1.items():
+            extra[k] = extra.get(k, 0) + (v - c0[k]) * times
+        for k, v in s1.items():
+            seen[k] += (v - s0.get(k, 0)) * times
+        return ms
+
+    return timed
 
 
 def phase_build():
     from runet_tpu_torch.kernels import build, fused_block, strided_conv
+    from runet_tpu_torch.kernels.attic import conv3d, conv_v3_deep, fused_norm
 
     t0 = time.monotonic()
     logs = build.build([fused_block.SOURCE, strided_conv.SOURCE, fused_block.DW_SOURCE,
-                        strided_conv.DW_SOURCE, fused_block.V2_SOURCE, fused_block.V1_SOURCE])
+                        strided_conv.DW_SOURCE, fused_block.V2_SOURCE, fused_block.V1_SOURCE,
+                        conv3d.SOURCE, conv_v3_deep.SOURCE, fused_norm.STATS_SOURCE,
+                        fused_norm.APPLY_SOURCE])
     for name, text in logs.items():
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
@@ -287,6 +371,7 @@ def phase_serve(dev):
     if not (m["kidney_composite"] > 0.96 and m["tumor"] > 0.82):
         raise AssertionError(f"quality gate failed: {m}")
     log(f"[serve] kernel launches in this phase: {counts}")
+    no_attic(counts, "serve")
     for name in (fused_block.SOURCE, strided_conv.SOURCE):
         if counts[name] <= 0:
             raise AssertionError(f"kernel {name} was not launched on the serving path")
@@ -402,6 +487,7 @@ def phase_serve_renal(dev):
                     f"fused_kernel={version}: {name} launched {counts[name]} times")
         if counts["conv3x3_s2_stats"] <= 0:
             raise AssertionError(f"fused_kernel={version}: the stride-2 kernel did not launch")
+        no_attic(counts, f"serve-renal {version}")
         for tag, (p, s) in extras.items():
             log(f"[serve-renal] v2 with {tag}: {s:.3f} s, Dice {gate(tag, p)}")
         if extras:
@@ -486,6 +572,7 @@ def phase_train(dev):
     log(f"[train] {TRAIN_STEPS} steps + validation + checkpoint in {t1 - t0:.1f} s; resume to "
         f"step {RESUME_STEPS} in {t2 - t1:.1f} s; full-volume val Dice {vals}")
     log(f"[train] kernel launches in this phase: {counts}")
+    no_attic(counts, "train")
     # 14 stride-1 convs (13 with dx: enc0's first conv has no input
     # gradient) and 4 stride-2 convs per step; validation adds forwards only.
     n = RESUME_STEPS
@@ -566,7 +653,8 @@ def phase_train_renal(dev):
         if state.step != steps or CheckpointManager(out / "ckpt").latest_step() != steps:
             raise AssertionError(f"{tag}: ended at step {state.step} without its checkpoint")
         want = {"conv3x3_stats": 0, "conv3x3_stats_v2": 0, "conv3x3_stats_v1": 0,
-                "conv3x3_dw": 0, "conv3x3_s2_stats": 4, "conv3x3_s2_dw": 4, **per_step}
+                "conv3x3_dw": 0, "conv3x3_s2_stats": 4, "conv3x3_s2_dw": 4,
+                **{k: 0 for k in ATTIC}, **per_step}
         want = {k: v * steps for k, v in want.items()}
         log(f"[train-renal] {tag}: {steps} steps in {wall:.1f} s, peak device memory "
             f"{peaks[tag]:.2f} GiB; kernel launches expected {want} found {counts}")
@@ -624,7 +712,7 @@ def phase_overfit(dev, cases):
         f"peak device memory {peak / 2**30:.2f} GiB")
     log(f"[overfit] kernel launches of one step: {one_step}")
     want = {"conv3x3_stats": 27, "conv3x3_s2_stats": 4, "conv3x3_dw": 14, "conv3x3_s2_dw": 4,
-            "conv3x3_stats_v2": 0, "conv3x3_stats_v1": 0}
+            "conv3x3_stats_v2": 0, "conv3x3_stats_v1": 0, **{k: 0 for k in ATTIC}}
     if one_step != want:
         raise AssertionError(f"one step launched {one_step}, expected {want}")
     ratio = losses[-1] / losses[0]
@@ -700,22 +788,34 @@ def phase_grad_reference(dev, model_cfg=None, label="fine_kits", floors=True):
         raise AssertionError(f"{label}: card gradients disagree with the CPU reference")
 
 
-def _check(got, want):
-    y, m, q = (t.float() for t in got)
-    yr, mr, qr = (t.float() for t in want)
+def _check_y(y, yr) -> float:
+    """One bf16 ulp, or 1e-3 of the largest magnitude near zero; returns the
+    largest error."""
+    y, yr = y.float(), yr.float()
     if y.shape != yr.shape:
         raise AssertionError(f"shape {tuple(y.shape)} != {tuple(yr.shape)}")
     err = (y - yr).abs()
     bad = int((err > 2.0 ** -7 * yr.abs() + 1e-3 * yr.abs().max()).sum())
+    if bad:
+        raise AssertionError(f"{bad} outputs off (largest error {err.max().item()})")
+    return err.max().item()
+
+
+def _check(got, want):
+    """(y, mean, sq-mean) against the plain version's: y by ``_check_y``,
+    sq-means to 1e-3 relative, means to 1e-3 of the channel rms."""
+    m, q = (t.float() for t in got[1:])
+    mr, qr = (t.float() for t in want[1:])
+    max_err = _check_y(got[0], want[0])
     rel_q = ((q - qr).abs() / qr.abs().clamp_min(1e-12)).max().item()
     rel_m = ((m - mr).abs() / qr.clamp_min(1e-12).sqrt()).max().item()
-    if bad or rel_q > 1e-3 or rel_m > 1e-3:
-        raise AssertionError(f"{bad} outputs off, sq-mean rel {rel_q}, mean rel {rel_m}")
-    return err.max().item(), max(rel_q, rel_m)
+    if rel_q > 1e-3 or rel_m > 1e-3:
+        raise AssertionError(f"sq-mean rel {rel_q}, mean rel {rel_m}")
+    return max_err, max(rel_q, rel_m)
 
 
-def _bound(flops: float, nbytes: float) -> dict:
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_HBM_BYTES * 1e3
+def _bound(flops: float, nbytes: float, peak_flops: float = PEAK_BF16_FLOPS) -> dict:
+    t_ops, t_bytes = flops / peak_flops * 1e3, nbytes / PEAK_HBM_BYTES * 1e3
     return {"bound_ms": max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
 
@@ -818,22 +918,43 @@ def _dw_case(mod, x_shape, cout, gen, dev):
 
 
 def phase_kernels(dev, path_shapes):
-    """Every kernel at every distinct shape each main path launched it with
-    (forward, dx and weight gradient alike), on random inputs against its
-    plain version, timed beside the plain version and the cuDNN yardstick;
-    returns {kernel: [case, ...]}."""
+    """Every kernel at every distinct shape each path launched it with
+    (forward, dx and weight gradient alike; the kernel bench's launches
+    too), on random inputs against its plain version, timed beside the
+    plain version and the library yardstick; returns {kernel: [case, ...]}."""
     from runet_tpu_torch.kernels import fused_block, strided_conv
+    from runet_tpu_torch.kernels.attic import conv3d, conv_v3_deep, fused_norm
 
     def variant(version):
         return lambda mod, x_shape, cout, gen, dev: _stats_case(mod, x_shape, cout, gen, dev,
                                                                version)
+
+    def ndhwc(stats):
+        def case(mod, x_shape, cout, gen, dev):
+            if x_shape[0] != 1:
+                raise AssertionError(f"the NDHWC kernels take one volume, got {x_shape}")
+            return _attic_conv_case(stats, x_shape[1:], cout, gen, dev)
+        return case
+
+    norm_pairs = {}  # x shape -> (stats case, apply case), made once per shape
+
+    def norm(which):
+        def case(mod, x_shape, c, gen, dev):
+            if x_shape not in norm_pairs:
+                norm_pairs[x_shape] = _attic_norm_cases(x_shape, torch.bfloat16, gen, dev)
+            return norm_pairs[x_shape][which]
+        return case
 
     run = {fused_block.SOURCE: (fused_block, _stats_case),
            fused_block.V2_SOURCE: (fused_block, variant("v2")),
            fused_block.V1_SOURCE: (fused_block, variant("v1")),
            strided_conv.SOURCE: (strided_conv, _stats_case),
            fused_block.DW_SOURCE: (fused_block, _dw_case),
-           strided_conv.DW_SOURCE: (strided_conv, _dw_case)}
+           strided_conv.DW_SOURCE: (strided_conv, _dw_case),
+           conv3d.SOURCE: (conv3d, ndhwc(False)),
+           conv_v3_deep.SOURCE: (conv_v3_deep, ndhwc(True)),
+           fused_norm.STATS_SOURCE: (fused_norm, norm(0)),
+           fused_norm.APPLY_SOURCE: (fused_norm, norm(1))}
     gen = torch.Generator(device=dev).manual_seed(0)
     out, timed = {}, {}
     for path, shapes in path_shapes.items():
@@ -847,11 +968,13 @@ def phase_kernels(dev, path_shapes):
             case = {"path": path, "x_shape": list(x_shape), "cout": cout, "launches": n,
                     "reused": reused, **timed[key]}
             if not reused:
+                lib = case["library_ms"]
                 log(f"[kernels] {name} {path} x{x_shape}->{cout} x{n}: "
                     f"err {case['max_abs_err']:.3g} (rel {case['rel_err']:.2e}) "
                     f"ms {case['ms']:.4f} plain {case['plain_ms']:.4f} "
-                    f"cuDNN {case['library_ms']:.4f} bound {case['bound_ms']:.4f} "
-                    f"({case['bound_by']}) {case['flops'] / case['ms'] / 1e9:.1f} TFLOP/s")
+                    f"library {'-' if lib is None else f'{lib:.4f}'} "
+                    f"bound {case['bound_ms']:.4f} ({case['bound_by']}) "
+                    f"{case['flops'] / case['ms'] / 1e9:.1f} TFLOP/s")
             out.setdefault(name, []).append(case)
     log(f"[kernels] {len(timed)} distinct (kernel, shape) cases held against their plain "
         f"versions")
@@ -881,12 +1004,282 @@ def phase_kernels(dev, path_shapes):
     return out
 
 
+# The attic phase's cases, beyond the kernel bench's shapes (which
+# phase_kernels holds): (tag, shape, Cout) for the NDHWC convs, (tag, shape,
+# dtype) for the instance-norm kernels; shapes with no multiple of 8 or 16
+# anywhere, the deepest level's norm, and f32.
+ATTIC_CONV_CASES = [("odd", (7, 13, 29, 5), 11)]
+ATTIC_V3_CASES = [("odd", (6, 9, 11, 24), 40)]
+ATTIC_NORM_CASES = [("deep", (1, 8, 8, 8, 320), torch.bfloat16),
+                    ("odd", (1, 3, 5, 7, 20), torch.bfloat16),
+                    ("odd f32", (1, 3, 5, 7, 20), torch.float32)]
+
+
+def _attic_conv_case(stats: bool, shape, cout, gen, dev, timed: bool = True) -> dict:
+    """The NDHWC conv (``stats``: with moments) against its plain version on
+    random inputs; ``timed``: also timed beside the plain version and
+    cuDNN's bf16 conv (+ sums)."""
+    from runet_tpu_torch.kernels.attic import conv3d, conv_v3_deep
+    from runet_tpu_torch.kernels.conv_common import pack_weight
+
+    D, H, W, C = shape
+    n = D * H * W
+    x = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+    w = (torch.randn((3, 3, 3, C, cout), generator=gen, device=dev) / math.sqrt(27 * C)
+         ).to(torch.bfloat16)
+    packed = pack_weight(w)
+    if stats:
+        wrap = lambda: conv_v3_deep.conv3x3_v3(x, w, packed)  # noqa: E731
+        plain = lambda: conv_v3_deep.conv3x3_v3_plain(x, w)  # noqa: E731
+    else:
+        wrap = lambda: conv3d.conv3x3x3_same(x, w, packed)  # noqa: E731
+        plain = lambda: conv3d.conv3x3x3_same_plain(x, w)  # noqa: E731
+    with torch.no_grad():
+        got, want = wrap(), plain()
+        if stats:
+            max_err, rel = _check(((got[0]), got[1] / n, got[2] / n),
+                                  (want[0], want[1] / n, want[2] / n))
+        else:
+            max_err, rel = _check_y(got, want), 0.0
+        del got, want
+        if not timed:
+            return {"max_abs_err": max_err, "rel_err": rel}
+        ms = cuda_ms(wrap, reps=10)
+        plain_ms = cuda_ms(plain, reps=3)
+        xc = x.permute(3, 0, 1, 2)[None].contiguous()
+        wc = w.permute(4, 3, 0, 1, 2).contiguous()
+
+        def lib():
+            y = F.conv3d(xc, wc, padding=1)
+            if stats:
+                yf = y.float()
+                return y, yf.sum((2, 3, 4)), (yf * yf).sum((2, 3, 4))
+            return y
+
+        library_ms = cuda_ms(lib, reps=10)
+    flops = 2.0 * 27 * C * cout * n
+    nbytes = 2.0 * n * C + 2.0 * 27 * C * cout + 2.0 * n * cout + (8.0 * cout if stats else 0)
+    return {"max_abs_err": max_err, "rel_err": rel, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "flops": flops, **_bound(flops, nbytes)}
+
+
+def _attic_norm_cases(shape, dtype, gen, dev, timed: bool = True) -> tuple[dict, dict]:
+    """The instance-norm stats and apply kernels, alone and as the pair
+    (``fused_instance_norm_lrelu``), against their plain versions; returns
+    (stats case, apply case). ``timed``: the cases also carry their times,
+    the apply case the pair's times and its library yardstick
+    (``F.instance_norm`` + ``F.leaky_relu``)."""
+    from runet_tpu_torch.kernels.attic import fused_norm as fn
+
+    C = shape[-1]
+    x = (1.5 + 2.0 * torch.randn(shape, generator=gen, device=dev)).to(dtype)
+    scale = 1.0 + 0.1 * torch.randn((C,), generator=gen, device=dev)
+    bias = 0.1 * torch.randn((C,), generator=gen, device=dev)
+    n = x[0, ..., 0].numel()
+    ulp = 2.0 ** -7 if dtype == torch.bfloat16 else 2.0 ** -22
+    with torch.no_grad():
+        s, q = fn.instance_norm_stats(x)
+        sr, qr = fn.instance_norm_stats_plain(x)
+        sa, _ = fn.instance_norm_stats_plain(x.abs())
+        rel_stats = max(((s - sr).abs() / sa).max().item(), ((q - qr).abs() / qr).max().item())
+        stats_err = max((s - sr).abs().max().item(), (q - qr).abs().max().item())
+        if not rel_stats <= NORM_SUM_TOL:
+            raise AssertionError(f"instance_norm_stats {tuple(shape)}: {rel_stats} > "
+                                 f"{NORM_SUM_TOL} of the sums over |x|")
+        mean = sr / n
+        rstd = torch.rsqrt(torch.clamp_min(qr / n - mean * mean, 0.0) + 1e-5)
+        got = fn.instance_norm_lrelu_apply(x, mean, rstd, scale, bias).float()
+        want = fn.instance_norm_lrelu_apply_plain(x, mean, rstd, scale, bias).float()
+        apply_err = (got - want).abs()
+        differ = int((got != want).sum())
+        if (apply_err > ulp * want.abs()).any():
+            raise AssertionError(f"instance_norm_lrelu_apply {tuple(shape)}: more than one ulp "
+                                 f"off (largest error {apply_err.max().item()})")
+        got = fn.fused_instance_norm_lrelu(x, scale, bias).float()
+        want = fn.fused_instance_norm_lrelu_plain(x, scale, bias).float()
+        pair_err = (got - want).abs()
+        if (pair_err > ulp * want.abs() + 1e-5 * want.abs().max()).any():
+            raise AssertionError(f"fused_instance_norm_lrelu {tuple(shape)}: off by up to "
+                                 f"{pair_err.max().item()}")
+        del got, want
+        log(f"[attic] norm {tuple(shape)} {dtype}: stats within {rel_stats:.2e} of Σ|x|, apply "
+            f"differs from its plain version in {differ} of {x.numel()} elements, pair max err "
+            f"{pair_err.max().item():.3g}")
+        if not timed:
+            return ({"max_abs_err": stats_err, "rel_err": rel_stats},
+                    {"max_abs_err": apply_err.max().item(), "rel_err": 0.0})
+
+        xc = x.permute(0, 4, 1, 2, 3).contiguous()  # NCDHW, F.instance_norm's own layout
+
+        def lib():
+            return F.leaky_relu(F.instance_norm(xc, weight=scale, bias=bias, eps=1e-5), 1e-2)
+
+        times = {
+            "stats": cuda_ms(lambda: fn.instance_norm_stats(x), reps=10),
+            "stats_plain": cuda_ms(lambda: fn.instance_norm_stats_plain(x), reps=3),
+            "apply": cuda_ms(lambda: fn.instance_norm_lrelu_apply(x, mean, rstd, scale, bias),
+                             reps=10),
+            "apply_plain": cuda_ms(lambda: fn.instance_norm_lrelu_apply_plain(
+                x, mean, rstd, scale, bias), reps=3),
+            "pair": cuda_ms(lambda: fn.fused_instance_norm_lrelu(x, scale, bias), reps=10),
+            "pair_plain": cuda_ms(lambda: fn.fused_instance_norm_lrelu_plain(x, scale, bias),
+                                  reps=3),
+            "pair_library": cuda_ms(lib, reps=10),
+        }
+    N, B = x.numel(), shape[0]
+    nb = N * x.element_size()
+    stats_case = {"max_abs_err": stats_err, "rel_err": rel_stats, "ms": times["stats"],
+                  "plain_ms": times["stats_plain"], "library_ms": None, "flops": 3.0 * N,
+                  **_bound(3.0 * N, nb + 8.0 * B * C, PEAK_F32_FLOPS)}
+    apply_case = {"max_abs_err": apply_err.max().item(), "rel_err": 0.0, "ms": times["apply"],
+                  "plain_ms": times["apply_plain"], "library_ms": None, "flops": 6.0 * N,
+                  "pair_ms": times["pair"], "pair_plain_ms": times["pair_plain"],
+                  "pair_library_ms": times["pair_library"],
+                  **_bound(6.0 * N, 2.0 * nb + 16.0 * B * C, PEAK_F32_FLOPS)}
+    return stats_case, apply_case
+
+
+def _attic_grad_check(shape, cout, gen, dev) -> tuple[float, float]:
+    """The attic conv's Function: dx and dw on the card against autograd
+    through ``F.conv3d`` in true f32 on the same bf16 values, with a linear
+    loss whose cotangent is bf16-exact; returns the largest errors."""
+    from runet_tpu_torch.kernels.attic import conv3d
+    from runet_tpu_torch.kernels.conv_common import no_tf32_conv
+
+    C = shape[-1]
+    x = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+    w = (torch.randn((3, 3, 3, C, cout), generator=gen, device=dev) / math.sqrt(27 * C)
+         ).to(torch.bfloat16)
+    r = torch.randn((*shape[:3], cout), generator=gen, device=dev).to(torch.bfloat16).float()
+    xk, wk = x.clone().requires_grad_(), w.clone().requires_grad_()
+    (conv3d.attic_conv3x3(xk, wk).float() * r).sum().backward()
+    xr, wr = x.float().requires_grad_(), w.float().requires_grad_()
+    with no_tf32_conv():
+        y = F.conv3d(xr.permute(3, 0, 1, 2)[None], wr.permute(4, 3, 0, 1, 2), padding=1)
+    (y[0].permute(1, 2, 3, 0) * r).sum().backward()
+    return _check_y(xk.grad, xr.grad), _check_y(wk.grad, wr.grad)
+
+
+def phase_attic(dev) -> dict:
+    """The four attic kernels against their plain versions at the shapes
+    the kernel bench does not launch (odd shapes, the deepest level's norm,
+    f32), untimed; the attic conv's gradient. Returns {kernel: [case, ...]}
+    in ``phase_kernels``' form, without times."""
+    from runet_tpu_torch.kernels.attic import conv3d, conv_v3_deep, fused_norm
+
+    gen = torch.Generator(device=dev).manual_seed(4)
+    out = {conv3d.SOURCE: [], conv_v3_deep.SOURCE: [], fused_norm.STATS_SOURCE: [],
+           fused_norm.APPLY_SOURCE: []}
+    t0 = time.monotonic()
+    for name, stats, cases in ((conv3d.SOURCE, False, ATTIC_CONV_CASES),
+                               (conv_v3_deep.SOURCE, True, ATTIC_V3_CASES)):
+        for tag, shape, cout in cases:
+            case = _attic_conv_case(stats, shape, cout, gen, dev, timed=False)
+            out[name].append({"path": "attic", "x_shape": list(shape), "cout": cout,
+                              "launches": 0, "reused": False, "tag": tag, **case})
+            log(f"[attic] {name} {tag} x{shape}->{cout}: err {case['max_abs_err']:.3g} "
+                f"(rel {case['rel_err']:.2e})")
+    for tag, shape, dtype in ATTIC_NORM_CASES:
+        cases = _attic_norm_cases(shape, dtype, gen, dev, timed=False)
+        for name, case in zip((fused_norm.STATS_SOURCE, fused_norm.APPLY_SOURCE), cases):
+            out[name].append({"path": "attic", "x_shape": list(shape), "cout": shape[-1],
+                              "launches": 0, "reused": False, "tag": tag,
+                              "dtype": str(dtype).removeprefix("torch."), **case})
+    for shape, cout in (((5, 7, 9, 12), 10), ((16, 24, 40, 32), 48)):
+        dx_err, dw_err = _attic_grad_check(shape, cout, gen, dev)
+        log(f"[attic] attic conv Function gradient at x{shape}->{cout} vs f32 autograd "
+            f"through F.conv3d: dx max err {dx_err:.3g}, dw max err {dw_err:.3g} "
+            f"(gate: one bf16 ulp + 1e-3 of the largest)")
+    log(f"[attic] {sum(len(v) for v in out.values())} cases in {time.monotonic() - t0:.1f} s")
+    return out
+
+
+# What each kernel-bench section must time, by row.
+BENCH_KEYS = {"rows": {"library", "v2m", "v2", "v1", "conv3d"}, "dw": {"dw", "library"},
+              "norm": {"kernel", "model", "library"}, "model_fwd": {"v2m", "v2", "v1"}}
+
+
+def phase_kernel_bench(dev) -> tuple[dict, dict]:
+    """``utils/kernel_bench.py`` end to end into chip_smoke_work/, its own
+    path: every kernel must launch and every row must carry a finite
+    positive ms for each kernel it names. Returns the path's launch counts
+    and launch shapes, each counting the kernels its CUDA graphs replayed
+    (``replay_counting``)."""
+    from runet_tpu_torch.utils import kernel_bench, latency
+
+    out = WORK / "kernel_bench.json"
+    replayed: dict[str, int] = {}
+    real_scanned = latency.scanned_ms
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    with launch_shapes() as shapes:
+        latency.scanned_ms = replay_counting(real_scanned, shapes, replayed)
+        try:
+            rc = kernel_bench.main(["--out", str(out)])
+        finally:
+            latency.scanned_ms = real_scanned
+        torch.cuda.synchronize()
+    counts = add_counts(kernel_counts(), replayed)
+    if rc != 0:
+        raise AssertionError(f"kernel_bench exited {rc}")
+    data = json.loads(out.read_text())
+
+    def check(row, need):
+        bad = [k for k in row if k.endswith("_error")]
+        for k in need:
+            v = row.get(f"{k}_ms")
+            if not (isinstance(v, (int, float)) and math.isfinite(v) and v > 0):
+                bad.append(f"{k}_ms={v}")
+        if bad:
+            raise AssertionError(f"kernel_bench {row.get('name', '')}: {bad}")
+
+    for row in data["rows"]:
+        need = BENCH_KEYS["dw"] if row.get("kind") == "dw" else set(BENCH_KEYS["rows"])
+        if row["name"] in kernel_bench.V3_ROWS:
+            need = need | {"v3"}
+        check(row, need)
+        log(f"[kernel-bench] {row['name']}: " + ", ".join(
+            f"{k} {row[f'{k}_ms']:.4f} ms ({row[f'{k}_tflops']:.1f} TFLOP/s)" for k in sorted(need)))
+    check(data["norm"], BENCH_KEYS["norm"])
+    for row in data["budget"]["rows"]:
+        need = {"prod", "prod_bwd"} | ({"library", "library_bwd"} if "stride" in row else set())
+        check(row, need)
+        log(f"[kernel-bench] budget {row['name']}: " + ", ".join(
+            f"{k} {row[f'{k}_ms']:.4f}" for k in sorted(need)) + " ms")
+    check(data["model_fwd"], BENCH_KEYS["model_fwd"])
+    n = data["norm"]
+    log(f"[kernel-bench] norm {n['shape']}: kernels {n['kernel_ms']:.4f} ms "
+        f"({n['kernel_gbps']:.0f} GB/s), model's plain torch {n['model_ms']:.4f}, "
+        f"F.instance_norm + F.leaky_relu {n['library_ms']:.4f}")
+    m = data["model_fwd"]
+    log(f"[kernel-bench] model_fwd fine_kits 128³ B 1: v2m {m['v2m_ms']:.2f} ms, v2 "
+        f"{m['v2_ms']:.2f}, v1 {m['v1_ms']:.2f}")
+    fell_back = {r["name"]: r["protocol"] for r in data["rows"] + data["budget"]["rows"]
+                 + [data["norm"]] if "protocol" in r}
+    log(f"[kernel-bench] rows timed with chained_ms (not capturable): {fell_back or 'none'}")
+    log(f"[kernel-bench] {time.monotonic() - t0:.1f} s; kernel launches (graph replays "
+        f"included) {counts}; of them replays {replayed}; distinct launch shapes {len(shapes)}")
+    missing = [k for k, v in counts.items() if v <= 0]
+    if missing:
+        raise AssertionError(f"kernel_bench did not launch {missing}")
+    return counts, shapes
+
+
 def kernel_lines(measured, path_counts):
     """One entry per kernel for the ``kernels`` JSON line. ``ms``,
     ``plain_ms``, ``library_ms`` and ``bound_ms`` are sums over the distinct
-    shapes timed (each once, whatever the number of paths that launched it);
-    ``path_ms`` weighs each shape's time by its launches on that path;
-    ``launches`` is over the main paths."""
+    shapes timed (each once, whatever the number of paths that launched it;
+    ``timed_ms_by_path`` splits ``ms`` by the path that first launched the
+    shape); ``path_ms`` weighs each shape's time by its launches on that
+    path; ``launches`` is over every path driven (the four main paths and
+    the kernel bench, split in ``launches_by_path``; the bench's count the
+    kernels its CUDA graphs replayed). ``max_abs_err`` also covers the
+    attic phase's untimed cases. ``library_ms`` is null where no single
+    library call computes the kernel's function (each instance-norm pass
+    alone); the apply kernel's line carries the pair's times (``pair_ms``,
+    ``pair_plain_ms``, ``pair_library_ms``: ``F.instance_norm`` +
+    ``F.leaky_relu``)."""
     replaces = {
         "conv3x3_stats": "runet_tpu/kernels/fused_block.py:639",
         "conv3x3_s2_stats": "runet_tpu/kernels/strided_conv.py:80",
@@ -894,14 +1287,20 @@ def kernel_lines(measured, path_counts):
         "conv3x3_s2_dw": "runet_tpu/kernels/strided_conv.py:223",
         "conv3x3_stats_v2": "runet_tpu/kernels/fused_block.py:286",
         "conv3x3_stats_v1": "runet_tpu/kernels/fused_block.py:53",
+        "conv3x3_ndhwc": "runet_tpu/kernels/attic/conv3d.py:46",
+        "conv3x3_ndhwc_stats": "runet_tpu/kernels/attic/conv_v3_deep.py:53",
+        "instance_norm_stats": "runet_tpu/kernels/attic/fused_norm.py:30",
+        "instance_norm_lrelu_apply": "runet_tpu/kernels/attic/fused_norm.py:39",
     }
     kernels = []
     for name, every in measured.items():
-        cs = [c for c in every if not c["reused"]]
+        checked = [c for c in every if not c["reused"]]
+        cs = [c for c in checked if "ms" in c]
         total = sum(c["bound_ms"] for c in cs)
         ops = sum(c["bound_ms"] for c in cs if c["bound_by"] == "operations")
         by_path = {p: counts.get(name, 0) for p, counts in path_counts.items()}
         paths = sorted({c["path"] for c in every})
+        launched = sorted({c["path"] for c in every if c["launches"]})
         kernels.append({
             "name": name,
             "route": "cuda",
@@ -909,17 +1308,22 @@ def kernel_lines(measured, path_counts):
             "replaces": replaces[name],
             "launches": sum(by_path.values()),
             "launches_by_path": by_path,
-            "max_abs_err": max(c["max_abs_err"] for c in cs),
-            "max_rel_err": max(c["rel_err"] for c in cs),
+            "max_abs_err": max(c["max_abs_err"] for c in checked),
+            "max_rel_err": max(c["rel_err"] for c in checked),
             "ms": sum(c["ms"] for c in cs),
             "plain_ms": sum(c["plain_ms"] for c in cs),
             "bound_ms": total,
             "bound_by": "operations" if ops >= total / 2 else "bytes",
-            "library_ms": sum(c["library_ms"] for c in cs),
+            "library_ms": (None if any(c["library_ms"] is None for c in cs)
+                           else sum(c["library_ms"] for c in cs)),
+            **{k: sum(c[k] for c in cs) for k in ("pair_ms", "pair_plain_ms", "pair_library_ms")
+               if all(k in c for c in cs)},
             "shapes_timed": len(cs),
             "shapes_by_path": {p: sum(c["path"] == p for c in every) for p in paths},
+            "timed_ms_by_path": {p: sum(c["ms"] for c in cs if c["path"] == p)
+                                 for p in sorted({c["path"] for c in cs})},
             "path_ms": {p: sum(c["ms"] * c["launches"] for c in every if c["path"] == p)
-                        for p in paths},
+                        for p in launched},
         })
     return kernels
 
@@ -929,6 +1333,8 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False; needs an NVIDIA GPU",
               file=sys.stderr)
         return 2
+    from runet_tpu_torch.utils.health import card_line
+
     dev = torch.device("cuda")
     card = card_line()
     log(f"[card] {card}")
@@ -958,18 +1364,24 @@ def main() -> int:
                                        fused_kernel=version)
             phase_grad_reference(dev, mcfg, f"renal_anatomy, deep supervision, "
                                  f"fused_kernel={version},", floors=False)
+        phase_overfit(dev, cases)
+        del cases
+        torch.cuda.empty_cache()
+        bench_counts, bench_shapes = phase_kernel_bench(dev)
         measured = phase_kernels(dev, {"serve": serve_shapes, "train": train_shapes,
                                        "serve_renal": renal_shapes,
-                                       "train_renal": rtrain_shapes})
-        phase_overfit(dev, cases)
+                                       "train_renal": rtrain_shapes,
+                                       "kernel_bench": bench_shapes})
+        for name, cases in phase_attic(dev).items():
+            measured[name] += cases
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
     kernels = kernel_lines(measured, {"serve": serve_counts, "train": train_counts,
                                       "serve_renal": renal_counts,
-                                      "train_renal": rtrain_counts})
-    if len(kernels) != 6:
-        raise AssertionError(f"expected six kernels on the main paths, got "
-                             f"{[k['name'] for k in kernels]}")
+                                      "train_renal": rtrain_counts,
+                                      "kernel_bench": bench_counts})
+    if len(kernels) != 10:
+        raise AssertionError(f"expected ten kernels, got {[k['name'] for k in kernels]}")
     log(f"[done] total {time.monotonic() - t_start:.1f} s")
     log(card_line())
     print(json.dumps({"kernels": kernels}))

@@ -80,8 +80,11 @@ def build(names) -> dict[str, str]:
         return {n: _finish_build(j) for n, j in jobs.items() if j is not None}
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library for ``csrc/<name>.cu``, built first if needed."""
+def load(name: str, api: dict) -> ctypes.CDLL:
+    """The loaded library for ``csrc/<name>.cu``, built first if needed,
+    with the C signatures of ``api`` bound on first load: {function suffix:
+    (argtypes, restype)} for each ``<name>_<suffix>`` (every pointer and
+    the stream a ``c_void_p``, or ctypes cuts them to 32 bits)."""
     lib = _libs.get(name)
     if lib is None:
         build([name])
@@ -89,5 +92,8 @@ def load(name: str) -> ctypes.CDLL:
             lib = _libs.get(name)
             if lib is None:
                 lib = ctypes.CDLL(str(library_path(name)))
+                for suffix, (argtypes, restype) in api.items():
+                    fn = getattr(lib, f"{name}_{suffix}")
+                    fn.argtypes, fn.restype = argtypes, restype
                 _libs[name] = lib
     return lib

@@ -1,8 +1,9 @@
-"""What the stride-1 and stride-2 conv wrappers share: the weight packing,
-the ctypes bindings and launches (with their scratch buffers) of the
-conv+moment and weight-gradient kernels, and the backward's cotangent fold.
-The wrappers themselves (with their launch counters, plain versions and
-autograd Functions) live in ``fused_block.py`` and ``strided_conv.py``."""
+"""What the conv wrappers share: the weight packing, the ctypes bindings and
+launches (with their scratch buffers) of the conv+moment and
+weight-gradient kernels, and the backward's cotangent fold. The wrappers
+themselves (with their launch counters, plain versions and autograd
+Functions) live in ``fused_block.py``, ``strided_conv.py`` and the
+``attic`` modules ``conv3d.py`` and ``conv_v3_deep.py``."""
 
 from __future__ import annotations
 
@@ -37,13 +38,13 @@ def pack_weight(kernel: torch.Tensor) -> torch.Tensor:
     return out
 
 
-# The C interface of each kind of library: {function suffix: (argtypes,
-# restype)}. Every pointer and the stream are c_void_p.
-_CONV_STATS_API = {
+# The C interface of each kind of library (``build.load``'s ``api``): the
+# conv kernels without and with moments, and the weight-gradient kernels.
+_CONV_API = {
     "launch": ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_void_p], ctypes.c_int),
-    "nblk": ([ctypes.c_int] * 3, ctypes.c_longlong),
     "cout_tile": ([], ctypes.c_int),
 }
+_CONV_STATS_API = {**_CONV_API, "nblk": ([ctypes.c_int] * 3, ctypes.c_longlong)}
 _CONV_DW_API = {
     "launch": ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p], ctypes.c_int),
     "splits": ([ctypes.c_int] * 7, ctypes.c_int),
@@ -51,36 +52,42 @@ _CONV_DW_API = {
 
 
 def _library(name: str, api: dict) -> ctypes.CDLL:
-    """The built library ``name`` with the C signatures of ``api`` bound,
-    loaded once per process."""
+    """The built library ``name`` with the C signatures of ``api`` bound;
+    a conv library's Cout tile is checked once per process."""
     lib = _bound.get(name)
     if lib is not None:
         return lib
-    lib = build.load(name)
-    for suffix, (argtypes, restype) in api.items():
-        fn = getattr(lib, f"{name}_{suffix}")
-        fn.argtypes, fn.restype = argtypes, restype
+    lib = build.load(name, api)
     if "cout_tile" in api and getattr(lib, f"{name}_cout_tile")() != COUT_TILE:
         raise RuntimeError(f"{name}: library Cout tile != {COUT_TILE}")
     _bound[name] = lib
     return lib
 
 
+_LAYOUTS = ("dchw", "dhcw", "dhwc")
+
+
 def launch_conv_stats(name: str, x: torch.Tensor, packed: torch.Tensor, cout: int,
-                      out_dhw: tuple[int, int, int], layout: str = "dchw"):
+                      out_dhw: tuple[int, int, int], layout: str = "dchw",
+                      stats: bool = True):
     """Run the CUDA kernel ``name`` on x (B, D, C, H, W) bf16 with packed
     weights; returns (y (B, Do, Cout, Ho, Wo) bf16, sums (B, Cout) f32,
     sqs (B, Cout) f32) for the output extents ``out_dhw``. With
-    ``layout="dhcw"`` x is (B, D, H, C, W) and y (B, Do, Ho, Cout, Wo)."""
+    ``layout="dhcw"`` x is (B, D, H, C, W) and y (B, Do, Ho, Cout, Wo); with
+    ``"dhwc"`` x is (B, D, H, W, C) and y (B, Do, Ho, Wo, Cout). With
+    ``stats=False`` (a kernel without the moment epilogue) the sums are
+    None and no scratch is allocated."""
     if x.dtype != torch.bfloat16:
         raise TypeError(f"{name}: the CUDA kernel takes bf16 activations, got {x.dtype}")
     if packed.device != x.device or packed.dtype != torch.bfloat16:
         raise ValueError(f"{name}: packed weights must be bf16 on {x.device}")
-    if layout not in ("dchw", "dhcw"):
+    if layout not in _LAYOUTS:
         raise ValueError(f"{name}: unknown layout {layout!r}")
     x = x.contiguous()
     if layout == "dhcw":
         B, D, H, C, W = x.shape
+    elif layout == "dhwc":
+        B, D, H, W, C = x.shape
     else:
         B, D, C, H, W = x.shape
     cout_p, cin_p = packed.shape[1], packed.shape[2]
@@ -88,21 +95,28 @@ def launch_conv_stats(name: str, x: torch.Tensor, packed: torch.Tensor, cout: in
             or cout_p % COUT_TILE:
         raise ValueError(f"{name}: packed weights {tuple(packed.shape)} do not fit "
                          f"Cin={C}, Cout={cout}")
-    lib = _library(name, _CONV_STATS_API)
+    lib = _library(name, _CONV_STATS_API if stats else _CONV_API)
     Do, Ho, Wo = out_dhw
-    nblk = int(getattr(lib, f"{name}_nblk")(Do, Ho, Wo))
     dev = x.device
-    y_shape = (B, Do, Ho, cout, Wo) if layout == "dhcw" else (B, Do, cout, Ho, Wo)
+    y_shape = {"dhcw": (B, Do, Ho, cout, Wo), "dhwc": (B, Do, Ho, Wo, cout)}.get(
+        layout, (B, Do, cout, Ho, Wo))
     y = torch.empty(y_shape, dtype=torch.bfloat16, device=dev)
-    psum = torch.empty((B, cout_p, nblk), dtype=torch.float32, device=dev)
-    psq = torch.empty_like(psum)
-    sums = torch.empty((B, cout), dtype=torch.float32, device=dev)
-    sqs = torch.empty_like(sums)
+    psum = psq = sums = sqs = None
+    if stats:
+        nblk = int(getattr(lib, f"{name}_nblk")(Do, Ho, Wo))
+        psum = torch.empty((B, cout_p, nblk), dtype=torch.float32, device=dev)
+        psq = torch.empty_like(psum)
+        sums = torch.empty((B, cout), dtype=torch.float32, device=dev)
+        sqs = torch.empty_like(sums)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = getattr(lib, f"{name}_launch")(
-            x.data_ptr(), packed.data_ptr(), y.data_ptr(), psum.data_ptr(),
-            psq.data_ptr(), sums.data_ptr(), sqs.data_ptr(),
+            x.data_ptr(), packed.data_ptr(), y.data_ptr(), ptr(psum),
+            ptr(psq), ptr(sums), ptr(sqs),
             B, D, C, H, W, cout, cin_p, cout_p, stream,
         )
     if rc != 0:

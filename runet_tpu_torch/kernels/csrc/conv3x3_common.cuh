@@ -1,8 +1,11 @@
 // Shared pieces of the 3x3x3 conv + InstanceNorm-moment kernels
 // (conv3x3_stats.cu, conv3x3_stats_v2.cu, conv3x3_stats_v1.cu,
-// conv3x3_s2_stats.cu): the bf16 tensor-core MMA and the transposing
-// ldmatrix, the staging of a chunk's weights, the epilogue that rounds the output to bf16 and folds it into per-block
-// moment partials, and the second pass that reduces those partials.
+// conv3x3_s2_stats.cu, and the NDHWC kernels of conv3x3_ndhwc.cuh): the
+// bf16 tensor-core MMA and the transposing ldmatrix, the staging of a
+// chunk's weights, the 27-tap MMA loop over a channel-innermost halo, the
+// epilogue that rounds the output to bf16 and folds it into per-block
+// moment partials, and the second pass that reduces those partials (also
+// the instance-norm statistics' second pass).
 //
 // Moments are deterministic: each block writes its per-channel partial sums
 // to a scratch slot of its own (fixed-order in-block reduction: per-thread
@@ -106,17 +109,63 @@ __device__ __forceinline__ void stage_halo(bf16* __restrict__ xs, const bf16* __
   }
 }
 
+// The 27 taps of one staged KC = 16 channel chunk: acc += A * B, where warp
+// `warp` computes output row `warp` of the block (halo row S * warp + kh)
+// over MT*16 output columns (halo column S * m + kw) and NT*8 output
+// channels. xs: the halo as stage_halo lays it out ((kd * XR + row) * XC +
+// col) * XS + ci; ws: the chunk's weights as stage_weights lays them out.
+// S is the conv stride (1 or 2). With XS = WS = 24 both fragment loads are
+// bank-conflict free.
+template <int S, int MT, int NT, int XR, int XC, int XS, int CO_T, int WS>
+__device__ __forceinline__ void mma_27taps(float (&acc)[MT][NT][4], const bf16* __restrict__ xs,
+                                           const bf16* __restrict__ ws, int warp, int g, int t) {
+#pragma unroll 1
+  for (int kd = 0; kd < 3; ++kd) {
+#pragma unroll
+    for (int kh = 0; kh < 3; ++kh) {
+      const bf16* xrow = xs + ((kd * XR + S * warp + kh) * XC) * XS;
+#pragma unroll
+      for (int kw = 0; kw < 3; ++kw) {
+        const int tap = (kd * 3 + kh) * 3 + kw;
+        uint32_t a[MT][4];
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          // A[m][k] = input at halo column S * (mt*16 + m) + kw, channel k.
+          const bf16* p = xrow + (S * (mt * 16 + g) + kw) * XS + 2 * t;
+          a[mt][0] = ld32(p);
+          a[mt][1] = ld32(p + S * 8 * XS);
+          a[mt][2] = ld32(p + 8);
+          a[mt][3] = ld32(p + S * 8 * XS + 8);
+        }
+        uint32_t bfr[NT][2];
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) {
+          // B[k][n] = weight of tap, output channel n, input channel k.
+          const bf16* p = ws + (tap * CO_T + nt * 8 + g) * WS + 2 * t;
+          bfr[nt][0] = ld32(p);
+          bfr[nt][1] = ld32(p + 8);
+        }
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt) mma_16816(acc[mt][nt], a[mt], bfr[nt]);
+      }
+    }
+  }
+}
+
 // Store one warp's (MT*16 w) x (NT*8 cout) accumulator tile of output row h
-// as bf16, and fold the ROUNDED values into the block's moment partials.
-// Every thread of the block must call it (it holds a __syncthreads).
-//   ybase: y at (b, d, channel 0, row 0, 0); channel stride cstride, row
-//   stride hstride, Wo columns ((D, C, H, W): H*W and W; (D, H, C, W): W and
-//   C*W).
+// as bf16, and with STATS fold the ROUNDED values into the block's moment
+// partials. With STATS every thread of the block must call it (it holds a
+// __syncthreads); without, red_s/red_q/psum/psq are not touched.
+//   ybase: y at (b, d, channel 0, row 0, column 0); channel stride cstride,
+//   row stride hstride, column stride wstride, Wo columns ((D, C, H, W): H*W,
+//   W, 1; (D, H, C, W): W, C*W, 1; (D, H, W, C): 1, W*C, C).
 //   partial slot of channel co0 + j: psum[pbase + j * nblk].
-template <int MT, int NT, int NWARPS>
-__device__ __forceinline__ void store_tile_and_moments_strided(
+template <int MT, int NT, int NWARPS, bool STATS = true>
+__device__ __forceinline__ void store_tile(
     const float (&acc)[MT][NT][4], bf16* __restrict__ ybase, int64_t cstride, int64_t hstride,
-    int Wo, int h, bool h_ok, int w0, int co0, int Cout,
+    int64_t wstride, int Wo, int h, bool h_ok, int w0, int co0, int Cout,
     float (*red_s)[NT * 8], float (*red_q)[NT * 8],
     float* __restrict__ psum, float* __restrict__ psq, int64_t pbase, int64_t nblk) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -136,7 +185,7 @@ __device__ __forceinline__ void store_tile_and_moments_strided(
         const int co = co0 + nt * 8 + 2 * t + (r & 1);
         if (h_ok && w < Wo && co < Cout) {
           const bf16 v = __float2bfloat16_rn(acc[mt][nt][r]);
-          ybase[(int64_t)co * cstride + (int64_t)h * hstride + w] = v;
+          ybase[(int64_t)co * cstride + (int64_t)h * hstride + (int64_t)w * wstride] = v;
           const float f = __bfloat162float(v);
           s[nt][r & 1] += f;
           q[nt][r & 1] += f * f;
@@ -144,37 +193,39 @@ __device__ __forceinline__ void store_tile_and_moments_strided(
       }
     }
   }
-#pragma unroll
-  for (int nt = 0; nt < NT; ++nt) {
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-#pragma unroll
-      for (int off = 4; off < 32; off <<= 1) {
-        s[nt][j] += __shfl_xor_sync(0xffffffffu, s[nt][j], off);
-        q[nt][j] += __shfl_xor_sync(0xffffffffu, q[nt][j], off);
-      }
-    }
-  }
-  if (g == 0) {
+  if constexpr (STATS) {
 #pragma unroll
     for (int nt = 0; nt < NT; ++nt) {
 #pragma unroll
       for (int j = 0; j < 2; ++j) {
-        red_s[warp][nt * 8 + 2 * t + j] = s[nt][j];
-        red_q[warp][nt * 8 + 2 * t + j] = q[nt][j];
+#pragma unroll
+        for (int off = 4; off < 32; off <<= 1) {
+          s[nt][j] += __shfl_xor_sync(0xffffffffu, s[nt][j], off);
+          q[nt][j] += __shfl_xor_sync(0xffffffffu, q[nt][j], off);
+        }
       }
     }
-  }
-  __syncthreads();
-  if (threadIdx.x < NT * 8) {
-    float ts = 0.f, tq = 0.f;
+    if (g == 0) {
 #pragma unroll
-    for (int wp = 0; wp < NWARPS; ++wp) {
-      ts += red_s[wp][threadIdx.x];
-      tq += red_q[wp][threadIdx.x];
+      for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          red_s[warp][nt * 8 + 2 * t + j] = s[nt][j];
+          red_q[warp][nt * 8 + 2 * t + j] = q[nt][j];
+        }
+      }
     }
-    psum[pbase + (int64_t)threadIdx.x * nblk] = ts;
-    psq[pbase + (int64_t)threadIdx.x * nblk] = tq;
+    __syncthreads();
+    if (threadIdx.x < NT * 8) {
+      float ts = 0.f, tq = 0.f;
+#pragma unroll
+      for (int wp = 0; wp < NWARPS; ++wp) {
+        ts += red_s[wp][threadIdx.x];
+        tq += red_q[wp][threadIdx.x];
+      }
+      psum[pbase + (int64_t)threadIdx.x * nblk] = ts;
+      psq[pbase + (int64_t)threadIdx.x * nblk] = tq;
+    }
   }
 }
 
@@ -185,8 +236,8 @@ __device__ __forceinline__ void store_tile_and_moments(
     int h, bool h_ok, int w0, int co0, int Cout,
     float (*red_s)[NT * 8], float (*red_q)[NT * 8],
     float* __restrict__ psum, float* __restrict__ psq, int64_t pbase, int64_t nblk) {
-  store_tile_and_moments_strided<MT, NT, NWARPS>(acc, ybase, HWo, Wo, Wo, h, h_ok, w0, co0, Cout,
-                                                 red_s, red_q, psum, psq, pbase, nblk);
+  store_tile<MT, NT, NWARPS>(acc, ybase, HWo, Wo, 1, Wo, h, h_ok, w0, co0, Cout, red_s, red_q,
+                             psum, psq, pbase, nblk);
 }
 
 // Second pass: sums[b, co] = sum over blocks of psum[b, co, :] (and sqs),

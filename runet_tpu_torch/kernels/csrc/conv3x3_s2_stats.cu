@@ -81,47 +81,10 @@ conv3x3_s2_stats_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wt,
     // Input rows 2d.., 2h0.., 2w0..; past the extent reads zero (the
     // (0, 1) SAME pad).
     convk::stage_halo<NTHREADS, KC, XR, XC, XS>(xs, xb, D, C, H, W, 2 * d, 2 * h0, 2 * w0, c0);
-    for (int e = threadIdx.x; e < 27 * CO_T * 2; e += NTHREADS) {
-      const int half = e & 1, r = e >> 1;
-      const int co = r % CO_T, tap = r / CO_T;
-      const uint4* src = reinterpret_cast<const uint4*>(
-          wt + ((int64_t)tap * Cout_pad + co0 + co) * Cin_pad + c0 + half * 8);
-      *reinterpret_cast<uint4*>(ws + (tap * CO_T + co) * WS + half * 8) = *src;
-    }
+    convk::stage_weights<NTHREADS, CO_T, WS>(ws, wt, Cout_pad, Cin_pad, co0, c0);
     __syncthreads();
 
-#pragma unroll 1
-    for (int kd = 0; kd < 3; ++kd) {
-#pragma unroll
-      for (int kh = 0; kh < 3; ++kh) {
-        const bf16* xrow = xs + ((kd * XR + 2 * warp + kh) * XC) * XS;
-#pragma unroll
-        for (int kw = 0; kw < 3; ++kw) {
-          const int tap = (kd * 3 + kh) * 3 + kw;
-          uint32_t a[MT][4];
-#pragma unroll
-          for (int mt = 0; mt < MT; ++mt) {
-            // A[m][k] = input at column 2*(mt*16 + m) + kw, channel k.
-            const bf16* p = xrow + (2 * (mt * 16 + g) + kw) * XS + 2 * t;
-            a[mt][0] = convk::ld32(p);
-            a[mt][1] = convk::ld32(p + 16 * XS);
-            a[mt][2] = convk::ld32(p + 8);
-            a[mt][3] = convk::ld32(p + 16 * XS + 8);
-          }
-          uint32_t bfr[NT][2];
-#pragma unroll
-          for (int nt = 0; nt < NT; ++nt) {
-            const bf16* p = ws + (tap * CO_T + nt * 8 + g) * WS + 2 * t;
-            bfr[nt][0] = convk::ld32(p);
-            bfr[nt][1] = convk::ld32(p + 8);
-          }
-#pragma unroll
-          for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-            for (int nt = 0; nt < NT; ++nt) convk::mma_16816(acc[mt][nt], a[mt], bfr[nt]);
-        }
-      }
-    }
+    convk::mma_27taps<2, MT, NT, XR, XC, XS, CO_T, WS>(acc, xs, ws, warp, g, t);
   }
 
   const int h = h0 + warp;

@@ -155,8 +155,8 @@ conv3x3_stats_v1_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wt,
   const int h = h0 + row;
   const int64_t blk = (int64_t)d * gridDim.x + blockIdx.x;
   bf16* ybase = y + ((int64_t)b * D + d) * H * Cout * W;
-  convk::store_tile_and_moments_strided<1, NT, NWARPS>(
-      acc, ybase, W, (int64_t)Cout * W, W, h, h < H, w0 + mt * 16, co0, Cout, red_s, red_q,
+  convk::store_tile<1, NT, NWARPS>(
+      acc, ybase, W, (int64_t)Cout * W, 1, W, h, h < H, w0 + mt * 16, co0, Cout, red_s, red_q,
       psum, psq, ((int64_t)b * Cout_pad + co0) * nblk + blk, nblk);
 }
 

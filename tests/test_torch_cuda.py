@@ -38,13 +38,20 @@ def _inputs(shape, cin, cout, seed, device):
     return x.to(device, torch.bfloat16), k.to(device, torch.bfloat16)
 
 
-def assert_conv_stats_close(got, want):
-    y, m, q = (t.float() for t in got)
-    yr, mr, qr = (t.float() for t in want)
-    assert y.shape == yr.shape and m.shape == mr.shape
+def assert_y_close(y, yr):
+    """Within one bf16 ulp, or 1e-3 of the largest magnitude near zero."""
+    y, yr = y.float(), yr.float()
+    assert y.shape == yr.shape
     tol = 2.0 ** -7 * yr.abs() + 1e-3 * yr.abs().max()
     bad = ((y - yr).abs() > tol).sum().item()
     assert bad == 0, f"{bad} outputs beyond tolerance; max err {(y - yr).abs().max().item()}"
+
+
+def assert_conv_stats_close(got, want):
+    y, m, q = (t.float() for t in got)
+    yr, mr, qr = (t.float() for t in want)
+    assert m.shape == mr.shape
+    assert_y_close(y, yr)
     torch.testing.assert_close(q, qr, rtol=1e-3, atol=1e-6)
     rms = qr.clamp_min(0).sqrt()
     assert ((m - mr).abs() <= 1e-3 * rms + 1e-6).all(), (m - mr).abs().max()
@@ -323,3 +330,176 @@ def test_patch_loader_copies_pinned_batches_to_the_card(cuda, tmp_path):
             np.testing.assert_array_equal(labels.cpu().numpy(), rl)
     finally:
         loader.close()
+
+
+# ---- attic kernels: the NDHWC convs and the instance-norm passes ----
+#
+# Tolerances: the conv kernels as the stride-1 kernels above (one bf16 ulp,
+# 1e-3 of the largest magnitude near zero; moments from the rounded
+# outputs). The stats kernel sums in f32 in another order than the plain
+# version: within 1e-5 of the same sum over |x| (and over x²). The apply
+# kernel rounds each f32 operation once in the plain version's order, so
+# it equals the plain version bit for bit.
+
+
+def _ndhwc_inputs(shape, cout, seed, device):
+    rng = np.random.default_rng(seed)
+    cin = shape[-1]
+    x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+    w = torch.from_numpy((rng.standard_normal((3, 3, 3, cin, cout)) / np.sqrt(27 * cin))
+                         .astype(np.float32))
+    return x.to(device, torch.bfloat16), w.to(device, torch.bfloat16)
+
+
+@pytest.mark.parametrize("D,H,W,C,Cout", [
+    (7, 13, 29, 5, 11),       # no multiple of 8 anywhere: element loads
+    (4, 8, 64, 16, 32),       # vector loads, whole tiles
+    (3, 9, 40, 24, 40),       # Cin % 16 = 8: a half-empty chunk; Cout ragged
+    (2, 5, 7, 70, 33),        # tiny extents, Cin % 8 != 0 past 64 channels
+])
+def test_attic_conv_kernel_matches_plain(cuda, D, H, W, C, Cout):
+    from runet_tpu_torch.kernels.attic import conv3d
+
+    x, w = _ndhwc_inputs((D, H, W, C), Cout, 20, cuda)
+    got = conv3d.conv3x3x3_same(x, w)
+    want = conv3d.conv3x3x3_same_plain(x, w)
+    torch.cuda.synchronize()
+    assert_y_close(got, want)
+
+
+def test_attic_conv_kernel_reads_an_unaligned_view(cuda):
+    """x whose storage starts 2 bytes off a 16-byte boundary (C % 8 == 0):
+    the kernel takes the element-load path and still matches."""
+    from runet_tpu_torch.kernels.attic import conv3d
+
+    x, w = _ndhwc_inputs((4, 6, 20, 16), 24, 21, cuda)
+    flat = torch.empty(x.numel() + 1, dtype=x.dtype, device=cuda)
+    xu = flat[1:].view(x.shape)
+    xu.copy_(x)
+    assert xu.data_ptr() % 16 != 0
+    assert_y_close(conv3d.conv3x3x3_same(xu, w), conv3d.conv3x3x3_same_plain(x, w))
+
+
+@pytest.mark.parametrize("D,H,W,C,Cout", [
+    (6, 9, 11, 24, 40),       # odd extents, ragged tiles
+    (8, 16, 16, 128, 128),    # a deep level (fine_l2's widths)
+    (4, 5, 7, 256, 64),       # fine_l3's input width
+])
+def test_attic_v3_kernel_matches_plain(cuda, D, H, W, C, Cout):
+    from runet_tpu_torch.kernels.attic import conv_v3_deep
+
+    x, w = _ndhwc_inputs((D, H, W, C), Cout, 22, cuda)
+    y, s, q = conv_v3_deep.conv3x3_v3(x, w)
+    yr, sr, qr = conv_v3_deep.conv3x3_v3_plain(x, w)
+    torch.cuda.synchronize()
+    n = D * H * W
+    assert_conv_stats_close((y, s / n, q / n), (yr, sr / n, qr / n))
+
+
+def test_attic_conv_kernels_are_counted_deterministic_and_bf16_only(cuda):
+    from runet_tpu_torch.kernels.attic import conv3d, conv_v3_deep
+
+    x, w = _ndhwc_inputs((4, 8, 40, 16), 32, 23, cuda)
+    n3, nv = conv3d.launches, conv_v3_deep.launches
+    a, b = conv3d.conv3x3x3_same(x, w), conv3d.conv3x3x3_same(x, w)
+    va, vb = conv_v3_deep.conv3x3_v3(x, w), conv_v3_deep.conv3x3_v3(x, w)
+    conv3d.conv3x3x3_same_plain(x, w)
+    conv_v3_deep.conv3x3_v3_plain(x, w)
+    assert torch.equal(a, b) and all(torch.equal(u, v) for u, v in zip(va, vb))
+    assert (conv3d.launches, conv_v3_deep.launches) == (n3 + 2, nv + 2)
+    with pytest.raises(TypeError):
+        conv3d.conv3x3x3_same(x.float(), w)
+    with pytest.raises(TypeError):
+        conv_v3_deep.conv3x3_v3(x.float(), w)
+    assert conv3d.conv_applicable(x) and not conv3d.conv_applicable(x.float())
+
+
+def test_attic_conv_function_grads_match_f32_autograd(cuda):
+    """AtticConv's dx (the kernel on flipped, swapped weights) and dw (f32
+    correlation) against autograd through F.conv3d in true f32 on the same
+    bf16 values, with a linear loss whose cotangent is bf16-exact: within
+    one bf16 ulp (both outputs are rounded to bf16 once) and 1e-3 of the
+    largest magnitude near zero."""
+    from runet_tpu_torch.kernels.attic import conv3d
+    from runet_tpu_torch.kernels.conv_common import no_tf32_conv
+
+    x, w = _ndhwc_inputs((5, 7, 9, 12), 10, 24, cuda)
+    r = torch.from_numpy(np.random.default_rng(25).standard_normal((5, 7, 9, 10))
+                         .astype(np.float32)).to(cuda, torch.bfloat16).float()
+    xk, wk = x.clone().requires_grad_(), w.clone().requires_grad_()
+    (conv3d.attic_conv3x3(xk, wk).float() * r).sum().backward()
+    xr, wr = x.float().requires_grad_(), w.float().requires_grad_()
+    with no_tf32_conv():
+        y = torch.nn.functional.conv3d(xr.permute(3, 0, 1, 2)[None],
+                                       wr.permute(4, 3, 0, 1, 2), padding=1)
+    (y[0].permute(1, 2, 3, 0) * r).sum().backward()
+    assert xk.grad.dtype == torch.bfloat16 and wk.grad.dtype == torch.bfloat16
+    assert_y_close(xk.grad, xr.grad)
+    assert_y_close(wk.grad, wr.grad)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", [
+    (1, 3, 5, 7, 20),         # C = 20: 4-wide vectors; odd extents
+    (1, 8, 8, 8, 320),        # C = 320: 40 vector columns
+    (2, 4, 4, 32, 128),
+    (2, 3, 2, 5, 7),          # C = 7: element loads
+])
+def test_attic_norm_kernels_match_plain(cuda, shape, dtype):
+    from runet_tpu_torch.kernels.attic import fused_norm as fn
+
+    rng = np.random.default_rng(26)
+    C = shape[-1]
+    x = torch.from_numpy(rng.normal(1.5, 2.0, size=shape).astype(np.float32)).to(cuda, dtype)
+    scale = torch.from_numpy(rng.normal(1.0, 0.1, size=C).astype(np.float32)).to(cuda)
+    bias = torch.from_numpy(rng.normal(0.0, 0.1, size=C).astype(np.float32)).to(cuda)
+    s, q = fn.instance_norm_stats(x)
+    sr, qr = fn.instance_norm_stats_plain(x)
+    sa, _ = fn.instance_norm_stats_plain(x.abs())
+    torch.cuda.synchronize()
+    assert ((s - sr).abs() <= 1e-5 * sa + 1e-6).all(), (s - sr).abs().max()
+    assert ((q - qr).abs() <= 1e-5 * qr + 1e-6).all(), (q - qr).abs().max()
+    n = x[0, ..., 0].numel()
+    mean = sr / n
+    rstd = torch.rsqrt(torch.clamp_min(qr / n - mean * mean, 0.0) + 1e-5)
+    assert torch.equal(fn.instance_norm_lrelu_apply(x, mean, rstd, scale, bias),
+                       fn.instance_norm_lrelu_apply_plain(x, mean, rstd, scale, bias))
+    got = fn.fused_instance_norm_lrelu(x, scale, bias)
+    want = fn.fused_instance_norm_lrelu_plain(x, scale, bias)
+    assert got.shape == x.shape and got.dtype == dtype
+    ulp = 2.0 ** -7 if dtype == torch.bfloat16 else 2.0 ** -22  # one ulp, relative
+    tol = ulp * want.float().abs() + 1e-5 * want.float().abs().max()
+    assert ((got.float() - want.float()).abs() <= tol).all()
+
+
+def test_attic_norm_kernels_are_counted_and_reject_f16(cuda):
+    from runet_tpu_torch.kernels.attic import fused_norm as fn
+
+    x = torch.randn((2, 4, 4, 4, 32), device=cuda)
+    scale, bias = torch.ones(32, device=cuda), torch.zeros(32, device=cuda)
+    ns, na = fn.stats_launches, fn.apply_launches
+    a = fn.fused_instance_norm_lrelu(x, scale, bias)
+    b = fn.fused_instance_norm_lrelu(x, scale, bias)
+    fn.fused_instance_norm_lrelu_plain(x, scale, bias)
+    assert torch.equal(a, b)
+    assert (fn.stats_launches, fn.apply_launches) == (ns + 2, na + 2)
+    with pytest.raises(TypeError):
+        fn.fused_instance_norm_lrelu(x.half(), scale, bias)
+
+
+def test_scanned_ms_captures_kernel_steps(cuda):
+    """A conv-kernel step and a norm-kernel step are captured into a CUDA
+    graph; a step that changes the shape is refused."""
+    from runet_tpu_torch.kernels.attic import conv3d, fused_norm
+    from runet_tpu_torch.utils import latency
+
+    x, w = _ndhwc_inputs((8, 16, 32, 32), 32, 27, cuda)
+    scale, bias = torch.ones(32, device=cuda), torch.zeros(32, device=cuda)
+    with torch.no_grad():
+        for step in (lambda t: conv3d.conv3x3x3_same(t, w),
+                     lambda t: fused_norm.fused_instance_norm_lrelu(t, scale, bias)):
+            assert latency.scanned_ms(step, x, iters=3, reps=2) > 0
+        assert latency.chained_ms(lambda t: conv3d.conv3x3x3_same(t, w), (x,), n=3) > 0
+        assert latency.pipelined_ms(lambda t: conv3d.conv3x3x3_same(t, w), (x,), n=3) > 0
+        with pytest.raises(ValueError):
+            latency.scanned_ms(lambda t: t[:1], x, iters=2)

@@ -59,10 +59,13 @@ def test_only_the_multi_device_request_is_left_unported():
 
 def test_every_kernel_module_names_a_source_that_exists():
     """Each ``*SOURCE`` a kernel module names is a ``.cu`` under csrc/, and
-    every ``.cu`` there is named by one (no orphan, no missing kernel)."""
+    every ``.cu`` there is named by one (no orphan, no missing kernel): the
+    six of the model's path and the four of the attic."""
     from runet_tpu_torch.kernels import build, fused_block, strided_conv
+    from runet_tpu_torch.kernels.attic import conv3d, conv_v3_deep, fused_norm
 
-    named = {v for mod in (fused_block, strided_conv) for k, v in vars(mod).items()
+    mods = (fused_block, strided_conv, conv3d, conv_v3_deep, fused_norm)
+    named = {v for mod in mods for k, v in vars(mod).items()
              if k.endswith("SOURCE") and isinstance(v, str)}
     on_disk = {p.stem for p in build.CSRC.glob("*.cu")}
-    assert named == on_disk and len(named) == 6
+    assert named == on_disk and len(named) == 10
