@@ -1,7 +1,5 @@
 // The stride-1 weight-gradient kernel (conv3x3_dw.cu): conv3x3_dw_common.cuh's
-// implicit GEMM (the same grid, nine warps, K-tile order, MMAs, split and
-// reduction, so the same sums in the same order and the same bits) with the
-// K-tiles staged in 16-byte chunks instead of element by element.
+// implicit GEMM with the K-tiles staged in 16-byte chunks.
 //
 // Shared layout of x: one line of XROW = 56 bf16 per (kd, row, ci). Input
 // column w0 + j, j in [-1, 32], sits at XOFF + j = 8 + j, so the 32 interior
@@ -33,26 +31,9 @@ struct DwS1 {
   static constexpr int NLINES = 3 * G::XR * G::CI_T;
   static constexpr int SMEM_X = NLINES * XROW;
   static constexpr int SMEM_BYTES = (SMEM_X + G::SMEM_G) * 2;
-  static constexpr int U = 4;  // chunk loads in flight per thread
   static_assert(G::TW == 32 && XOFF % 8 == 0 && XROW % 8 == 0, "16-byte chunk stores");
   static_assert((SMEM_X * 2) % 16 == 0, "g tile 16-byte aligned");
 };
-
-// 8 bf16 at src, columns w..w+7 of a row of n, as one uint4; zero past n.
-// VEC: n % 8 == 0 and src 16-byte aligned, so the chunk is wholly in or out.
-template <bool VEC>
-__device__ __forceinline__ uint4 ld_chunk(const bf16* __restrict__ src, int w, int n) {
-  if constexpr (VEC) {
-    return w < n ? *reinterpret_cast<const uint4*>(src) : make_uint4(0u, 0u, 0u, 0u);
-  } else {
-    unsigned short h[8];
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-      h[j] = w + j < n ? __bfloat16_as_ushort(src[j]) : (unsigned short)0;
-    return make_uint4(h[0] | ((unsigned)h[1] << 16), h[2] | ((unsigned)h[3] << 16),
-                      h[4] | ((unsigned)h[5] << 16), h[6] | ((unsigned)h[7] << 16));
-  }
-}
 
 // Stage the input halo of K-tile (d, h0, w0) for channels c0..c0+CI_T:
 // xs[((kd * XR + row) * CI_T + ci) * XROW + XOFF + j] = x[d-1+kd, c0+ci,
@@ -64,7 +45,7 @@ __device__ __forceinline__ void dw1_stage_x(bf16* __restrict__ xs, const bf16* _
                                             int D, int C, int H, int W, int d, int h0, int w0,
                                             int c0) {
   using G = DwGeom<1>;
-  constexpr int NCH = DwS1::NLINES * 4, NHALO = DwS1::NLINES * 2, U = DwS1::U;
+  constexpr int NCH = DwS1::NLINES * 4, NHALO = DwS1::NLINES * 2, U = G::U;
   const int64_t HW = (int64_t)H * W;
   for (int base = threadIdx.x; base < NCH; base += G::NTHREADS * U) {
     uint4 v[U];
@@ -105,35 +86,6 @@ __device__ __forceinline__ void dw1_stage_x(bf16* __restrict__ xs, const bf16* _
     for (int u = 0; u < U; ++u) {
       const int e = base + u * G::NTHREADS;
       if (e < NHALO) xs[(e >> 1) * DwS1::XROW + DwS1::XOFF + ((e & 1) ? G::TW : -1)] = v[u];
-    }
-  }
-}
-
-// Stage the g tile: gs[(r * CO_T + co) * GROW + k] = g[b, d, co0+co, h0+r,
-// w0+k], zero outside the output extent and past Cout (a zero g voxel adds
-// nothing, which also masks the ragged K edge). Chunk e covers k = 8q..8q+7
-// of line e / 4 = r * CO_T + co.
-template <bool VEC>
-__device__ __forceinline__ void dw1_stage_g(bf16* __restrict__ gs, const bf16* __restrict__ gb,
-                                            int Cout, int H, int W, int h0, int w0, int co0) {
-  using G = DwGeom<1>;
-  constexpr int NCH = G::TH * G::CO_T * 4, U = DwS1::U;
-  const int64_t HW = (int64_t)H * W;
-  for (int base = threadIdx.x; base < NCH; base += G::NTHREADS * U) {
-    uint4 v[U];
-#pragma unroll
-    for (int u = 0; u < U; ++u) {
-      const int e = base + u * G::NTHREADS;
-      const int q = e & 3, co = (e >> 2) % G::CO_T, r = (e >> 2) / G::CO_T;
-      const int hh = h0 + r, cc = co0 + co, ww = w0 + 8 * q;
-      v[u] = make_uint4(0u, 0u, 0u, 0u);
-      if (e < NCH && hh < H && cc < Cout)
-        v[u] = ld_chunk<VEC>(gb + (int64_t)cc * HW + (int64_t)hh * W + ww, ww, W);
-    }
-#pragma unroll
-    for (int u = 0; u < U; ++u) {
-      const int e = base + u * G::NTHREADS;
-      if (e < NCH) *reinterpret_cast<uint4*>(gs + (e >> 2) * G::GROW + (e & 3) * 8) = v[u];
     }
   }
 }
@@ -179,7 +131,7 @@ conv3x3_dw_s1_kernel(const bf16* __restrict__ x, const bf16* __restrict__ g,
     const int h0 = ht * G::TH, w0 = wt * G::TW;
     __syncthreads();  // the previous tile's fragments have been read
     dw1_stage_x<VX>(xs, x + (int64_t)b * D * C * HW, D, C, H, W, d, h0, w0, c0);
-    dw1_stage_g<VG>(gs, g + ((int64_t)b * D + d) * Cout * HW, Cout, H, W, h0, w0, co0);
+    dw_stage_g<1, VG>(gs, g + ((int64_t)b * D + d) * Cout * HW, Cout, H, W, h0, w0, co0);
     __syncthreads();
 
 #pragma unroll 1
@@ -215,20 +167,7 @@ conv3x3_dw_s1_kernel(const bf16* __restrict__ x, const bf16* __restrict__ g,
     }
   }
 
-  float* pb = part + (int64_t)split * 27 * C * Cout;
-#pragma unroll
-  for (int kw = 0; kw < 3; ++kw) {
-    const int tap = (kd * 3 + kh) * 3 + kw;
-#pragma unroll
-    for (int nt = 0; nt < G::NT; ++nt) {
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const int ci = c0 + gq + (r >= 2 ? 8 : 0);
-        const int co = co0 + nt * 8 + 2 * t + (r & 1);
-        if (ci < C && co < Cout) pb[((int64_t)tap * C + ci) * Cout + co] = acc[kw][nt][r];
-      }
-    }
-  }
+  dw_store_partial<1>(part, acc, C, Cout, c0, co0);
 }
 
 template <bool VX, bool VG>
@@ -268,12 +207,7 @@ inline int dw1_launch(const void* x, const void* g, void* part, void* out, int B
   const int e = launch[vx][vg](static_cast<const bf16*>(x), static_cast<const bf16*>(g),
                                static_cast<float*>(part), B, D, C, H, W, Cout, n_splits, st);
   if (e != cudaSuccess) return e;
-  const int64_t E = 27LL * C * Cout;
-  int64_t nb = (E + 255) / 256;
-  if (nb > 4096) nb = 4096;
-  reduce_splits<<<(int)nb, 256, 0, st>>>(static_cast<const float*>(part),
-                                         static_cast<float*>(out), E, n_splits);
-  return (int)cudaGetLastError();
+  return reduce_splits_launch(part, out, C, Cout, n_splits, st);
 }
 
 }  // namespace convk

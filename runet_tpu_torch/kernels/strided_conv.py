@@ -14,8 +14,9 @@ symmetric ``padding=1``. Two CUDA kernels:
   On the H100 it is bound by the HBM bytes of reading its input once (each
   output reads 8x its volume).
 - ``csrc/conv3x3_s2_dw.cu`` replaces ``_s2_dw_kernel``, the weight
-  gradient: the stride-1 dw's implicit GEMM with the input halo staged as
-  separate even and odd columns, one launch for the whole batch.
+  gradient: the stride-1 dw's implicit GEMM with the input halo staged in
+  16-byte chunks as separate even and odd columns, one launch for the whole
+  batch.
 
 Unlike the Pallas gate (B == 1 only) both take any batch B >= 1.
 ``ConvS2Stats`` is the autograd Function of the JAX ``conv3x3_s2``

@@ -42,7 +42,7 @@ GROUPS = [
     ("conv3x3_stats_v1 (stride-1 forward and dx)", ("conv3x3_stats_v1_kernel",)),
     ("conv3x3_s2_stats (stride-2 forward)", ("conv3x3_s2_stats_kernel",)),
     ("conv3x3_dw (stride-1 weight gradient)", ("conv3x3_dw_s1_kernel",)),
-    ("conv3x3_s2_dw (stride-2 weight gradient)", ("conv3x3_dw_kernel<2>",)),
+    ("conv3x3_s2_dw (stride-2 weight gradient)", ("conv3x3_dw_s2_kernel",)),
     ("split and moment reductions (2nd passes)", ("reduce_splits", "reduce_moments")),
     ("cuDNN (stride-2 dx; v1 weight gradient; transposed-conv upsample)",
      ("dgrad", "wgrad", "cudnn::", "cudnn_", "implicit_convolve")),

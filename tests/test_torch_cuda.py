@@ -270,10 +270,27 @@ def test_conv3x3_dw_kernel_is_deterministic_across_tile_seams(cuda):
     assert torch.equal(fused_block.conv3x3_dw(x, g), fused_block.conv3x3_dw(x, g))
 
 
+# The stride-2 kernel stages each input line of a K-tile (65 columns) as
+# eight 16-byte chunks split into even and odd columns, with one 16-byte
+# load per chunk where W % 8 == 0 and x is 16-byte aligned (eight element
+# loads otherwise), and the 65th column as one element; g as four chunks
+# per row, 16-byte loads where Wo % 8 == 0 and g is aligned.
+_S2_DW_STAGING_SHAPES = [
+    (1, 4, 16, 6, 8, 32),     # Wo = 4: only chunk 0 of each x line is real
+    (1, 4, 32, 10, 16, 64),   # Wo = 8: chunks 2-7 lie past W; ragged H (Ho = 5)
+    (2, 4, 24, 8, 32, 40),    # Wo = 16, B = 2, Cin and Cout off the tile sizes
+    (1, 2, 1, 6, 64, 32),     # Wo = 32: the 65th column is the high pad; Cin = 1
+    (1, 4, 16, 4, 6, 24),     # W = 6: element loads for x and g
+    (1, 2, 48, 6, 18, 32),    # W = 18, Wo = 9
+    (2, 2, 16, 6, 128, 32),   # Wo = 64: the 65th column of tile 0 is tile 1's first
+]
+
+
 @pytest.mark.parametrize("B,D,C,H,W,Cout", [
     (1, 4, 16, 4, 128, 32),
     (2, 8, 24, 6, 34, 48),    # B = 2, ragged tiles
     (1, 2, 1, 2, 2, 24),      # Cin = 1, minimal extents
+    *_S2_DW_STAGING_SHAPES,
 ])
 def test_conv3x3_s2_dw_kernel_matches_plain(cuda, B, D, C, H, W, Cout):
     x, g = _dw_inputs((B, D, C, H, W), (B, D // 2, Cout, H // 2, W // 2), 6, cuda)
@@ -282,6 +299,29 @@ def test_conv3x3_s2_dw_kernel_matches_plain(cuda, B, D, C, H, W, Cout):
     bound = strided_conv.conv3x3_s2_dw_plain(x.abs(), g.abs())
     torch.cuda.synchronize()
     assert_dw_close(dw, want, bound)
+
+
+@pytest.mark.parametrize("unaligned", ["x", "g"])
+@pytest.mark.parametrize("B,D,C,H,W,Cout", _S2_DW_STAGING_SHAPES)
+def test_conv3x3_s2_dw_element_loads_equal_vector_loads(cuda, unaligned, B, D, C, H, W, Cout):
+    """x or g at an odd element offset takes the element-load staging; the
+    same values reach the same fragments, so dw has the same bits."""
+    x, g = _dw_inputs((B, D, C, H, W), (B, D // 2, Cout, H // 2, W // 2), 16, cuda)
+    aligned = strided_conv.conv3x3_s2_dw(x, g)
+    if unaligned == "x":
+        x = _at_odd_offset(x)
+    else:
+        g = _at_odd_offset(g)
+    dw = strided_conv.conv3x3_s2_dw(x, g)
+    torch.cuda.synchronize()
+    assert torch.equal(dw, aligned)
+    assert_dw_close(dw, strided_conv.conv3x3_s2_dw_plain(x, g),
+                    strided_conv.conv3x3_s2_dw_plain(x.abs(), g.abs()))
+
+
+def test_conv3x3_s2_dw_kernel_is_deterministic_across_tile_seams(cuda):
+    x, g = _dw_inputs((2, 2, 16, 6, 128), (2, 1, 32, 3, 64), 17, cuda)
+    assert torch.equal(strided_conv.conv3x3_s2_dw(x, g), strided_conv.conv3x3_s2_dw(x, g))
 
 
 def test_dw_kernels_are_deterministic(cuda):
