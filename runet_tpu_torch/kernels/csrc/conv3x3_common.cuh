@@ -1,11 +1,13 @@
-// Shared pieces of the 3x3x3 conv + InstanceNorm-moment kernels
-// (conv3x3_stats.cu, conv3x3_stats_v2.cu, conv3x3_stats_v1.cu,
-// conv3x3_s2_stats.cu, and the NDHWC kernels of conv3x3_ndhwc.cuh): the
-// bf16 tensor-core MMA and the transposing ldmatrix, the staging of a
-// chunk's weights, the 27-tap MMA loop over a channel-innermost halo, the
-// epilogue that rounds the output to bf16 and folds it into per-block
-// moment partials, and the second pass that reduces those partials (also
-// the instance-norm statistics' second pass).
+// Shared pieces of the 3x3x3 conv kernels (conv3x3_stats.cu,
+// conv3x3_stats_v2.cu, conv3x3_stats_v1.cu, conv3x3_s2_stats.cu, the NDHWC
+// kernels of conv3x3_ndhwc.cuh, and the dw kernels through
+// conv3x3_dw_common.cuh): the 16-byte chunk load along W, the bf16
+// tensor-core MMA and the transposing ldmatrix, the staging of a chunk's
+// weights, conv3x3_stats.cu's element-wise halo stager, the 27-tap MMA loop
+// over a channel-innermost halo, the epilogue that rounds the output to
+// bf16 and folds it into per-block moment partials, and the second pass
+// that reduces those partials (also the instance-norm statistics' second
+// pass).
 //
 // Moments are deterministic: each block writes its per-channel partial sums
 // to a scratch slot of its own (fixed-order in-block reduction: per-thread
@@ -26,6 +28,22 @@ __host__ __device__ constexpr int round_up(int v, int m) { return (v + m - 1) / 
 
 __device__ __forceinline__ uint32_t ld32(const bf16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// 8 bf16 at src, columns w..w+7 of a row of n, as one uint4; zero past n.
+// VEC: n % 8 == 0 and src 16-byte aligned, so the chunk is wholly in or out.
+template <bool VEC>
+__device__ __forceinline__ uint4 ld_chunk(const bf16* __restrict__ src, int w, int n) {
+  if constexpr (VEC) {
+    return w < n ? *reinterpret_cast<const uint4*>(src) : make_uint4(0u, 0u, 0u, 0u);
+  } else {
+    unsigned short h[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      h[j] = w + j < n ? __bfloat16_as_ushort(src[j]) : (unsigned short)0;
+    return make_uint4(h[0] | ((unsigned)h[1] << 16), h[2] | ((unsigned)h[3] << 16),
+                      h[4] | ((unsigned)h[5] << 16), h[6] | ((unsigned)h[7] << 16));
+  }
 }
 
 // D = A(16x16, row) * B(16x8, col) + D with bf16 inputs and f32 accumulators.
@@ -74,7 +92,8 @@ __device__ __forceinline__ void stage_weights(bf16* __restrict__ ws, const bf16*
 // Stage one KC-channel chunk of the input halo into shared memory, channel
 // innermost: xs[((kd * XR + row) * XC + col) * XS + ci] =
 // x[b, d0 + kd, c0 + ci, h0 + row, w0 + col], zero outside the extent and
-// past channel C (the SAME / stride-2 padding and the channel padding).
+// past channel C (the SAME padding and the channel padding), one element at
+// a time.
 // Consecutive threads read consecutive w (coalesced). Each thread issues U
 // independent loads before it stores any: a load-then-store loop leaves one
 // load in flight per thread and is latency-bound.

@@ -15,11 +15,11 @@
 // against 4 n8 tiles, two 16-voxel k-steps per row.
 //
 // This file holds what the two kernels share: the tile geometry (DwGeom),
-// the 16-byte chunk load, the g stager, the write of a block's partial dw,
-// and the split count and second pass. Each block writes its f32 partial dw
-// for its split to a slot of its own; reduce_splits then sums the slots of
-// each weight in a fixed order. No float atomics, so a run gives the same
-// bits every time.
+// the g stager (16-byte chunks, conv3x3_common.cuh's ld_chunk), the write
+// of a block's partial dw, and the split count and second pass. Each block
+// writes its f32 partial dw for its split to a slot of its own;
+// reduce_splits then sums the slots of each weight in a fixed order. No
+// float atomics, so a run gives the same bits every time.
 #pragma once
 
 #include "conv3x3_common.cuh"
@@ -41,22 +41,6 @@ struct DwGeom {
   static constexpr int U = 4;  // chunk loads in flight per thread
   static_assert(TW == 32 && GROW % 8 == 0, "g lines of four 16-byte chunks");
 };
-
-// 8 bf16 at src, columns w..w+7 of a row of n, as one uint4; zero past n.
-// VEC: n % 8 == 0 and src 16-byte aligned, so the chunk is wholly in or out.
-template <bool VEC>
-__device__ __forceinline__ uint4 ld_chunk(const bf16* __restrict__ src, int w, int n) {
-  if constexpr (VEC) {
-    return w < n ? *reinterpret_cast<const uint4*>(src) : make_uint4(0u, 0u, 0u, 0u);
-  } else {
-    unsigned short h[8];
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-      h[j] = w + j < n ? __bfloat16_as_ushort(src[j]) : (unsigned short)0;
-    return make_uint4(h[0] | ((unsigned)h[1] << 16), h[2] | ((unsigned)h[3] << 16),
-                      h[4] | ((unsigned)h[5] << 16), h[6] | ((unsigned)h[7] << 16));
-  }
-}
 
 // Stage the g tile: gs[(r * CO_T + co) * GROW + k] = g[b, d, co0+co, h0+r,
 // w0+k] for an output of Ho x Wo, zero outside it and past Cout (a zero g

@@ -10,9 +10,11 @@ symmetric ``padding=1``. Two CUDA kernels:
   ``_conv_s2_kernel``: the bf16 output with f32 moments of the rounded
   output. The Pallas kernel needed 0/1 selection matmuls to decimate W
   because TPU lanes cannot be strided; the GPU kernel addresses the strided
-  element inside the same mma.sync implicit GEMM as the stride-1 kernel.
-  On the H100 it is bound by the HBM bytes of reading its input once (each
-  output reads 8x its volume).
+  element inside the same mma.sync implicit GEMM as the stride-1 kernel,
+  with the input halo staged in 16-byte chunks along W and transposed to
+  channel-innermost in registers. Its least time on the H100 is the HBM
+  bytes of reading its input once (each output reads 8x its volume); the
+  kernel is still several times slower than that (PERF.md §6).
 - ``csrc/conv3x3_s2_dw.cu`` replaces ``_s2_dw_kernel``, the weight
   gradient: the stride-1 dw's implicit GEMM with the input halo staged in
   16-byte chunks as separate even and odd columns, one launch for the whole

@@ -153,10 +153,37 @@ def test_conv3x3_stats_kernel_is_deterministic(cuda):
         assert torch.equal(u, v)
 
 
+def _at_odd_offset(t):
+    """A contiguous copy of t that starts one element past a 16-byte
+    boundary, so the kernel cannot take 16-byte loads from it."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    view = buf[1:1 + t.numel()].view(t.shape)
+    view.copy_(t)
+    assert view.is_contiguous() and view.data_ptr() % 16
+    return view
+
+
+# The stride-2 forward kernel stages each input line of a block (65
+# columns) as eight 8-column chunks of four channels each, transposed to
+# channel-innermost in registers: one 16-byte load per channel and chunk
+# where W % 8 == 0 and x is 16-byte aligned (eight element loads
+# otherwise), and the 65th column as one element per channel.
+_S2_STATS_STAGING_SHAPES = [
+    (1, 4, 16, 6, 8, 32),     # Wo = 4: only chunk 0 of each line is real
+    (1, 4, 32, 10, 16, 64),   # Wo = 8: chunks 2-7 lie past W; ragged H (Ho = 5)
+    (2, 4, 24, 8, 32, 48),    # Wo = 16, B = 2: quads 2-3 of K-tile 1 past C; Cout = 48
+    (1, 2, 1, 6, 64, 32),     # Wo = 32: the 65th column is the high pad; Cin = 1
+    (1, 2, 18, 4, 128, 32),   # Wo = 64: two column tiles; channels 18-19 of a quad past C
+    (1, 4, 16, 4, 6, 24),     # W = 6: element loads
+    (1, 2, 24, 6, 20, 40),    # W = 20: element loads, one partial chunk
+]
+
+
 @pytest.mark.parametrize("B,D,C,H,W,Cout", [
     (1, 4, 16, 4, 128, 32),
     (2, 8, 24, 6, 34, 48),    # B = 2, ragged tiles
     (1, 2, 1, 2, 2, 24),      # Cin = 1, minimal extents
+    *_S2_STATS_STAGING_SHAPES,
 ])
 def test_conv3x3_s2_stats_kernel_matches_plain(cuda, B, D, C, H, W, Cout):
     x, k = _inputs((B, D, C, H, W), C, Cout, 2, cuda)
@@ -164,6 +191,27 @@ def test_conv3x3_s2_stats_kernel_matches_plain(cuda, B, D, C, H, W, Cout):
     want = strided_conv.conv3x3_s2_stats_plain(x, k)
     torch.cuda.synchronize()
     assert_conv_stats_close(got, want)
+
+
+@pytest.mark.parametrize("B,D,C,H,W,Cout", _S2_STATS_STAGING_SHAPES)
+def test_conv3x3_s2_stats_element_loads_equal_vector_loads(cuda, B, D, C, H, W, Cout):
+    """x at an odd element offset takes the element-load staging; the same
+    values reach the same shared cells, so y and the moments keep their bits."""
+    x, k = _inputs((B, D, C, H, W), C, Cout, 18, cuda)
+    aligned = strided_conv.conv_s2_stats_dchw_batch(x, k)
+    got = strided_conv.conv_s2_stats_dchw_batch(_at_odd_offset(x), k)
+    torch.cuda.synchronize()
+    for u, v in zip(got, aligned):
+        assert torch.equal(u, v)
+    assert_conv_stats_close(got, strided_conv.conv3x3_s2_stats_plain(x, k))
+
+
+def test_conv3x3_s2_stats_kernel_is_deterministic_across_tile_seams(cuda):
+    x, k = _inputs((2, 2, 16, 6, 128), 16, 32, 19, cuda)
+    a = strided_conv.conv_s2_stats_dchw_batch(x, k)
+    b = strided_conv.conv_s2_stats_dchw_batch(x, k)
+    for u, v in zip(a, b):
+        assert torch.equal(u, v)
 
 
 def test_kernel_wrappers_count_launches(cuda):
@@ -235,16 +283,6 @@ def test_conv3x3_dw_staging_paths_match_plain(cuda, B, D, C, H, W, Cout):
     bound = fused_block.conv3x3_dw_plain(x.abs(), g.abs())
     torch.cuda.synchronize()
     assert_dw_close(dw, want, bound)
-
-
-def _at_odd_offset(t):
-    """A contiguous copy of t that starts one element past a 16-byte
-    boundary, so the kernel cannot take 16-byte loads from it."""
-    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
-    view = buf[1:1 + t.numel()].view(t.shape)
-    view.copy_(t)
-    assert view.is_contiguous() and view.data_ptr() % 16
-    return view
 
 
 @pytest.mark.parametrize("unaligned", ["x", "g"])
