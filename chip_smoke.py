@@ -82,7 +82,10 @@ Phases (any failure exits non-zero; nothing is caught and printed over):
    attic conv, bf16 ``torch.nn.grad.conv3d_weight`` for the weight
    gradients, ``F.instance_norm`` + ``F.leaky_relu`` for the instance-norm
    pair; never called by the port; for the "v1" kernel on its own (B, D,
-   H, C, W) layout, the permutes to and from cuDNN's layout included);
+   H, C, W) layout, the permutes to and from cuDNN's layout included). At
+   every "v1" shape the kernel also runs on x at an odd element offset,
+   its element-load instance, which must give the aligned run's y, sums
+   and sqs bit for bit (``element_ms`` times it);
 10. attic: the four attic kernels against their plain versions, untimed,
    at shapes the bench does not launch: the NDHWC conv at (7, 13, 29,
    5)→11, the NDHWC conv + moments at (6, 9, 11, 24)→40, the instance-norm
@@ -846,9 +849,12 @@ def _stats_case(mod, x_shape, cout, gen, dev, version="v2m"):
     k = (torch.randn((3, 3, 3, C, cout), generator=gen, device=dev) / math.sqrt(27 * C)
          ).to(torch.bfloat16)
     packed = pack_weight(k)
+    extra = {}
     with torch.no_grad():
         max_err, rel = _check(wrap(x, k, packed), plain(x, k))
         ms = cuda_ms(lambda: wrap(x, k, packed), reps=10)
+        if dhcw:
+            extra["element_ms"] = _element_loads_case(mod, x, k, packed)
         plain_ms = cuda_ms(lambda: plain(x, k), reps=3)
         # Library yardstick: cuDNN bf16 conv in its own NCDHW layout + sums
         # (for the v1 kernel, from and back to the layout the kernel takes).
@@ -873,7 +879,32 @@ def _stats_case(mod, x_shape, cout, gen, dev, version="v2m"):
     flops = 2.0 * 27 * C * cout * n_out
     nbytes = 2.0 * B * D * C * H * W + 2.0 * 27 * C * cout + 2.0 * n_out * cout + 8.0 * B * cout
     return {"max_abs_err": max_err, "rel_err": rel, "ms": ms, "plain_ms": plain_ms,
-            "library_ms": library_ms, "flops": flops, **_bound(flops, nbytes)}
+            "library_ms": library_ms, "flops": flops, **_bound(flops, nbytes), **extra}
+
+
+def _at_odd_offset(t):
+    """A contiguous copy of t that starts one element past a 16-byte
+    boundary, so a kernel cannot take 16-byte loads from it."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    view = buf[1:1 + t.numel()].view(t.shape)
+    view.copy_(t)
+    if not view.is_contiguous() or view.data_ptr() % 16 == 0:
+        raise AssertionError("the odd-offset copy is not contiguous and unaligned")
+    return view
+
+
+def _element_loads_case(mod, x, k, packed) -> float:
+    """The v1 kernel's element-load instance: x at an odd offset must give
+    the aligned run's y, sums and sqs bit for bit (where W % 8 != 0 both runs
+    take element loads). Returns its time."""
+    xo = _at_odd_offset(x)
+    want = mod._conv3x3_sums(x, k, packed, "v1")
+    got = mod._conv3x3_sums(xo, k, packed, "v1")
+    for name, u, v in zip(("y", "sums", "sqs"), got, want):
+        if not torch.equal(u, v):
+            raise AssertionError(f"v1 at x {tuple(x.shape)}: {name} at an odd offset differs "
+                                 f"from the aligned run")
+    return cuda_ms(lambda: mod._conv3x3_sums(xo, k, packed, "v1"), reps=10)
 
 
 def _dw_case(mod, x_shape, cout, gen, dev):
@@ -974,7 +1005,9 @@ def phase_kernels(dev, path_shapes):
                     f"ms {case['ms']:.4f} plain {case['plain_ms']:.4f} "
                     f"library {'-' if lib is None else f'{lib:.4f}'} "
                     f"bound {case['bound_ms']:.4f} ({case['bound_by']}) "
-                    f"{case['flops'] / case['ms'] / 1e9:.1f} TFLOP/s")
+                    f"{case['flops'] / case['ms'] / 1e9:.1f} TFLOP/s"
+                    + (f" element loads {case['element_ms']:.4f} (bits equal)"
+                       if "element_ms" in case else ""))
             out.setdefault(name, []).append(case)
     log(f"[kernels] {len(timed)} distinct (kernel, shape) cases held against their plain "
         f"versions")
@@ -1279,7 +1312,8 @@ def kernel_lines(measured, path_counts):
     library call computes the kernel's function (each instance-norm pass
     alone); the apply kernel's line carries the pair's times (``pair_ms``,
     ``pair_plain_ms``, ``pair_library_ms``: ``F.instance_norm`` +
-    ``F.leaky_relu``)."""
+    ``F.leaky_relu``), and the v1 kernel's line the time of its
+    element-load instance over the same shapes (``element_ms``)."""
     replaces = {
         "conv3x3_stats": "runet_tpu/kernels/fused_block.py:639",
         "conv3x3_s2_stats": "runet_tpu/kernels/strided_conv.py:80",
@@ -1316,7 +1350,8 @@ def kernel_lines(measured, path_counts):
             "bound_by": "operations" if ops >= total / 2 else "bytes",
             "library_ms": (None if any(c["library_ms"] is None for c in cs)
                            else sum(c["library_ms"] for c in cs)),
-            **{k: sum(c[k] for c in cs) for k in ("pair_ms", "pair_plain_ms", "pair_library_ms")
+            **{k: sum(c[k] for c in cs) for k in ("pair_ms", "pair_plain_ms", "pair_library_ms",
+                                             "element_ms")
                if all(k in c for c in cs)},
             "shapes_timed": len(cs),
             "shapes_by_path": {p: sum(c["path"] == p for c in every) for p in paths},

@@ -27,15 +27,27 @@
 // Moments as in conv3x3_stats.cu: from the rounded output, per-block
 // partials, reduced in a fixed order, no float atomics.
 //
-// What bounds it on the H100: operations by the roofline, but this kernel
-// pays 27 shared-memory copies of every input element (the im2col build:
-// 216 scalar copies per thread per chunk against 108 MMAs per warp), so the
-// build, not the tensor cores, sets its time. 104 KB of shared memory a
-// block lets two blocks share an SM, one building while the other
-// multiplies. Giving each thread one voxel and fixed channels, so that the
-// tap loops unroll to constant offsets (no per-element index arithmetic),
-// took the level-0 32->32 conv (B 2, 128^3) from 15.6 to 4.5 ms (H100 80GB
-// HBM3, 700 W).
+// The im2col tile is built from 16-byte chunks along W (load_units<VX>,
+// store_units): each (line, 8-column chunk) unit is one 16-byte load under
+// the launcher's VX flag (W % 8 == 0 and x 16-byte aligned; else 8 masked
+// element loads), and fills 3 to 6 runs of col with 16-byte stores, its
+// kw = 0 and kw = 2 runs made by shuffles and byte-permutes: 27 16-byte
+// stores per thread and chunk. col holds the same bytes as an element-wise
+// copy, so y and the moments do not depend on which loads built it. The
+// chunk's loads are issued before the weights are staged and stored after,
+// so the two global reads overlap.
+//
+// What bounds it on the H100: operations by the roofline, but the kernel
+// runs at ~85 TFLOP/s at full tiles (chip_smoke.py's kernels phase; NVIDIA
+// H100 80GB HBM3, 700.00 W; PERF.md §6). A probe that left out one phase at
+// a time found the build, the weight staging and the 27-step GEMM of
+// similar cost: every block of 64 voxels re-stages a chunk's 27 x 32 x 16
+// weights (a load-then-store loop, ~14 rounds per thread) as well as
+// building the tile. Left: the weight staging; every CO_T = 32
+// output-channel tile rebuilds the whole im2col tile (10 builds at Cout
+// 320); at W <= 16 half or more of the TW = 32 tile is padding; staging is
+// synchronous, with no overlap of the staging and the MMAs beyond the
+// second block on the SM.
 #include "conv3x3_common.cuh"
 
 namespace {
@@ -58,48 +70,95 @@ constexpr int SMEM_W = 27 * CO_T * WS;
 constexpr int SMEM_BYTES = (SMEM_COL + SMEM_W) * 2;
 static_assert(KS % 8 == 0 && (KS * 2) % 128 == 16, "ldmatrix rows: aligned and conflict-free");
 
-// Build the chunk's im2col tile from the tensor (L1/L2 serve the 27-fold
-// re-reads). A thread owns one voxel of the tile and CPT of the chunk's
-// channels for all 27 taps, so the tap loops unroll to constant offsets and
-// the bounds tests hoist out of the channel loop; consecutive threads copy
-// consecutive w, and each thread has CPT independent loads in flight before
-// it stores any.
-__device__ __forceinline__ void build_im2col(bf16* __restrict__ col, const bf16* __restrict__ xb,
-                                             int D, int H, int C, int W, int d, int h0,
-                                             int w0, int c0) {
-  constexpr int CPT = KC * NV / NTHREADS;  // channels per thread
-  static_assert(NTHREADS % NV == 0 && CPT * NTHREADS == KC * NV, "threads tile the chunk");
-  const int vox = threadIdx.x % NV, cbase = (threadIdx.x / NV) * CPT;
-  const int row = vox / TW, j = vox - row * TW;
-  const int64_t CW = (int64_t)C * W;
-  const bf16 zero = __ushort_as_bfloat16((unsigned short)0);
-#pragma unroll 1
-  for (int kd = 0; kd < 3; ++kd) {
-    const int dd = d + kd - 1;
+// The chunk's im2col tile from 16-byte chunks along W. The chunk reads
+// 3 kd x (TH + 2) input rows r x 16 channels = 192 lines, input
+// (d + kd - 1, h0 + r - 1, c0 + ci), each over columns w0 - 1 .. w0 + TW. A
+// unit is one line and one 8-column chunk q (columns w0 + 8q .. +7), and
+// every unit fills a 16-byte run of col for each (row, kh) with row + kh = r
+// and each kw. Lane -> (ci % 8 = lane & 7, q = lane >> 3), so the eight
+// threads of one 16-byte store phase write eight channel rows of one q, 144
+// B apart: eight distinct bank groups. Warp `warp` takes, at step u, the
+// line group L = u * NWARPS + warp of the 24 groups L = (kd * 4 + r) * 2 +
+// ci / 8, so kd = u / 2 and r = 2 * (u % 2) + warp / 2.
+//
+// load_units issues a thread's six chunk loads (ld_chunk<VX>: one 16-byte
+// load under VX, else 8 masked element loads) and its halo elements, all
+// before store_units stores anything: lanes with q == 0 also load column
+// w0 - 1, lanes with q == 3 column w0 + TW. The kw = 0 and kw = 2 runs are
+// the chunk shifted by one column either way: a shuffle brings the left
+// neighbour's last word and the right neighbour's first (the edge lanes take
+// their halo element instead), and __byte_perm(a, b, 0x5432) = (high half
+// of a, low half of b) joins two adjacent words. Zero outside D and H, past
+// W and past channel C, as in an element-wise copy, so col holds the same
+// bytes.
+constexpr int UNITS = 3 * (TH + 2) * 2 / NWARPS;  // units per thread and chunk
+static_assert(TH == 2 && NWARPS == 4 && TW == 32 && KC == 16,
+              "lane and warp maps: four 8-column chunks, two channel halves");
+
+// One thread's units of a chunk, loaded and not yet stored: its chunks and
+// halo elements.
+struct Units {
+  uint4 v[UNITS];
+  uint32_t e[UNITS];
+};
+
+template <bool VX>
+__device__ __forceinline__ void load_units(Units& un, const bf16* __restrict__ xb, int D, int H,
+                                           int C, int W, int d, int h0, int w0, int c0) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int q = lane >> 3, ci = (warp & 1) * 8 + (lane & 7), r0 = warp >> 1;
+  const int wq = w0 + 8 * q, wh = q == 0 ? w0 - 1 : w0 + TW;
+  const bool halo = (q == 0 || q == 3) && (unsigned)wh < (unsigned)W;
+  const bool c_ok = c0 + ci < C;
 #pragma unroll
-    for (int kh = 0; kh < 3; ++kh) {
-      const int hh = h0 + row + kh - 1;
-      const bool dh_ok = (unsigned)dd < (unsigned)D && (unsigned)hh < (unsigned)H;
-      const int64_t base = ((int64_t)dd * H + hh) * CW + (int64_t)(c0 + cbase) * W;
+  for (int u = 0; u < UNITS; ++u) {
+    const int kd = u >> 1, r = r0 + 2 * (u & 1);
+    const int dd = d + kd - 1, hh = h0 + r - 1;
+    const bf16* line = xb + (((int64_t)dd * H + hh) * C + c0 + ci) * W;
+    un.v[u] = make_uint4(0u, 0u, 0u, 0u);
+    un.e[u] = 0u;
+    if (c_ok && (unsigned)dd < (unsigned)D && (unsigned)hh < (unsigned)H) {
+      un.v[u] = convk::ld_chunk<VX>(line + wq, wq, W);
+      if (halo) un.e[u] = __bfloat16_as_ushort(line[wh]);
+    }
+  }
+}
+
+__device__ __forceinline__ void store_units(bf16* __restrict__ col, const Units& un) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int q = lane >> 3, ci = (warp & 1) * 8 + (lane & 7), r0 = warp >> 1;
 #pragma unroll
-      for (int kw = 0; kw < 3; ++kw) {
-        const int ww = w0 + j + kw - 1;
-        const bool ok = dh_ok && (unsigned)ww < (unsigned)W;
-        bf16 v[CPT];
+  for (int u = 0; u < UNITS; ++u) {
+    const int kd = u >> 1, r = r0 + 2 * (u & 1);
+    // x[1..4]: the chunk's words; x[0] holds column w0 + 8q - 1 in its high
+    // half, x[5] column w0 + 8q + 8 in its low half.
+    const uint4 v = un.v[u];
+    uint32_t x[6] = {0u, v.x, v.y, v.z, v.w, 0u};
+    const uint32_t left = __shfl_up_sync(0xffffffffu, x[4], 8);
+    const uint32_t right = __shfl_down_sync(0xffffffffu, x[1], 8);
+    x[0] = q == 0 ? un.e[u] << 16 : left;
+    x[5] = q == 3 ? un.e[u] : right;
+    uint32_t p[5];
 #pragma unroll
-        for (int i = 0; i < CPT; ++i) {
-          v[i] = zero;
-          if (ok && c0 + cbase + i < C) v[i] = xb[base + (int64_t)i * W + ww];
-        }
-        bf16* dst = col + (((kd * 3 + kh) * 3 + kw) * KC + cbase) * KS + vox;
+    for (int j = 0; j < 5; ++j) p[j] = __byte_perm(x[j], x[j + 1], 0x5432);
+    const uint4 kw0 = make_uint4(p[0], p[1], p[2], p[3]);
+    const uint4 kw2 = make_uint4(p[1], p[2], p[3], p[4]);
 #pragma unroll
-        for (int i = 0; i < CPT; ++i) dst[i * KS] = v[i];
+    for (int row = 0; row < TH; ++row) {
+      const int kh = r - row;
+      if (kh >= 0 && kh < 3) {
+        bf16* dst = col + ((kd * 3 + kh) * 3 * KC + ci) * KS + row * TW + 8 * q;
+        *reinterpret_cast<uint4*>(dst) = kw0;
+        *reinterpret_cast<uint4*>(dst + KC * KS) = v;
+        *reinterpret_cast<uint4*>(dst + 2 * KC * KS) = kw2;
       }
     }
   }
 }
 
-__global__ void __launch_bounds__(NTHREADS)
+// Two blocks per SM, as shared memory allows.
+template <bool VX>
+__global__ void __launch_bounds__(NTHREADS, 2)
 conv3x3_stats_v1_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wt,
                         bf16* __restrict__ y, float* __restrict__ psum,
                         float* __restrict__ psq, int D, int C, int H, int W, int Cout,
@@ -131,8 +190,11 @@ conv3x3_stats_v1_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wt,
 
   for (int c0 = 0; c0 < Cin_pad; c0 += KC) {
     __syncthreads();  // the previous chunk's fragments have been read
-    build_im2col(col, xb, D, H, C, W, d, h0, w0, c0);
+    // The chunk's loads are in flight while the weights are staged.
+    Units un;
+    load_units<VX>(un, xb, D, H, C, W, d, h0, w0, c0);
     convk::stage_weights<NTHREADS, CO_T, WS>(ws, wt, Cout_pad, Cin_pad, co0, c0);
+    store_units(col, un);
     __syncthreads();
 
     // One GEMM over the chunk's whole K: 27 k16 steps.
@@ -160,6 +222,25 @@ conv3x3_stats_v1_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wt,
       psum, psq, ((int64_t)b * Cout_pad + co0) * nblk + blk, nblk);
 }
 
+template <bool VX>
+int launch_kernel(const bf16* x, const bf16* wt, bf16* y, float* psum, float* psq, int B,
+                  int D, int C, int H, int W, int Cout, int Cin_pad, int Cout_pad,
+                  cudaStream_t st) {
+  static bool attr_done = false;
+  if (!attr_done) {
+    cudaError_t e = cudaFuncSetAttribute(
+        conv3x3_stats_v1_kernel<VX>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+    if (e != cudaSuccess) return (int)e;
+    attr_done = true;
+  }
+  const int nh = (H + TH - 1) / TH, nw = (W + TW - 1) / TW, nco = Cout_pad / CO_T;
+  dim3 grid(nh * nw, D, B * nco);
+  conv3x3_stats_v1_kernel<VX><<<grid, NTHREADS, SMEM_BYTES, st>>>(
+      x, wt, y, psum, psq, D, C, H, W, Cout, Cin_pad, Cout_pad, nw, nco,
+      (int64_t)D * nh * nw);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -178,26 +259,20 @@ long long conv3x3_stats_v1_nblk(int D, int H, int W) {
 int conv3x3_stats_v1_launch(const void* x, const void* wt, void* y, void* psum, void* psq,
                             void* sums, void* sqs, int B, int D, int C, int H, int W,
                             int Cout, int Cin_pad, int Cout_pad, void* stream) {
-  static bool attr_done = false;
-  if (!attr_done) {
-    cudaError_t e = cudaFuncSetAttribute(
-        conv3x3_stats_v1_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
-    if (e != cudaSuccess) return (int)e;
-    attr_done = true;
-  }
+  typedef int (*Launch)(const bf16*, const bf16*, bf16*, float*, float*, int, int, int, int,
+                        int, int, int, int, cudaStream_t);
+  // x takes the 16-byte loads when W % 8 == 0 and x is 16-byte aligned.
+  const bool vx = W % 8 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  const Launch launch = vx ? launch_kernel<true> : launch_kernel<false>;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  const int nh = (H + TH - 1) / TH, nw = (W + TW - 1) / TW, nco = Cout_pad / CO_T;
-  const int64_t nblk = (int64_t)D * nh * nw;
-  dim3 grid(nh * nw, D, B * nco);
-  conv3x3_stats_v1_kernel<<<grid, NTHREADS, SMEM_BYTES, st>>>(
-      static_cast<const bf16*>(x), static_cast<const bf16*>(wt), static_cast<bf16*>(y),
-      static_cast<float*>(psum), static_cast<float*>(psq), D, C, H, W, Cout, Cin_pad,
-      Cout_pad, nw, nco, nblk);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
+  const int e = launch(static_cast<const bf16*>(x), static_cast<const bf16*>(wt),
+                       static_cast<bf16*>(y), static_cast<float*>(psum),
+                       static_cast<float*>(psq), B, D, C, H, W, Cout, Cin_pad, Cout_pad, st);
+  if (e != cudaSuccess) return e;
   convk::reduce_moments<<<dim3(Cout, B), 256, 0, st>>>(
       static_cast<const float*>(psum), static_cast<const float*>(psq),
-      static_cast<float*>(sums), static_cast<float*>(sqs), nblk, Cout, Cout_pad);
+      static_cast<float*>(sums), static_cast<float*>(sqs), conv3x3_stats_v1_nblk(D, H, W),
+      Cout, Cout_pad);
   return (int)cudaGetLastError();
 }
 

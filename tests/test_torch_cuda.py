@@ -85,6 +85,19 @@ def _variant(version):
     return (lambda x, k, p=None: fused_block.conv_in_stats_dchw_batch(x, k, p, version)), plain
 
 
+# The v1 kernel builds its im2col tile from (input line, 8-column chunk)
+# units: one 16-byte load per unit where W % 8 == 0 and x is 16-byte aligned
+# (eight element loads otherwise), the columns w0 - 1 and w0 + 32 as single
+# elements, and the kw = 0 / 2 copies by shuffles across chunks.
+_V1_STAGING_SHAPES = [
+    (1, 4, 16, 5, 8, 32),     # W = 8: chunks 1-3 lie past W; H odd (the TH = 2 tail)
+    (2, 3, 24, 6, 20, 48),    # W = 20: element loads; B = 2, Cin 24, Cout 48
+    (1, 3, 40, 4, 33, 32),    # W = 33: a second tile of one column; Cin 40
+    (1, 2, 1, 7, 96, 32),     # W = 96: three tiles, halo columns across the seams; Cin 1
+    (2, 2, 32, 3, 64, 48),    # W = 64, B = 2, H odd, Cout 48
+]
+
+
 @pytest.mark.parametrize("version", ["v2", "v1"])
 @pytest.mark.parametrize("B,D,C,H,W,Cout", [
     (1, 4, 16, 8, 64, 32),
@@ -92,6 +105,7 @@ def _variant(version):
     (2, 5, 48, 7, 19, 24),    # ragged tiles, decoder concat width, B = 2
     (1, 3, 70, 3, 5, 40),     # tiny deep-level extents
     (1, 8, 320, 8, 8, 320),   # the bottleneck: one block's tile is most of the volume
+    *_V1_STAGING_SHAPES,
 ])
 def test_conv3x3_stats_variant_kernels_match_plain(cuda, version, B, D, C, H, W, Cout):
     x, k = _inputs((B, D, C, H, W), C, Cout, 0, cuda)
@@ -210,6 +224,32 @@ def test_conv3x3_s2_stats_kernel_is_deterministic_across_tile_seams(cuda):
     x, k = _inputs((2, 2, 16, 6, 128), 16, 32, 19, cuda)
     a = strided_conv.conv_s2_stats_dchw_batch(x, k)
     b = strided_conv.conv_s2_stats_dchw_batch(x, k)
+    for u, v in zip(a, b):
+        assert torch.equal(u, v)
+
+
+def _v1_sums(x, k):
+    """The v1 kernel's own (y, sums, sqs), before the means are taken."""
+    return fused_block._conv3x3_sums(x, k, None, "v1")
+
+
+@pytest.mark.parametrize("B,D,C,H,W,Cout", _V1_STAGING_SHAPES)
+def test_conv3x3_stats_v1_element_loads_equal_vector_loads(cuda, B, D, C, H, W, Cout):
+    """x at an odd element offset takes the element-load build; the same
+    values reach the same im2col cells, so y, sums and sqs keep their bits."""
+    x, k = _inputs((B, D, C, H, W), C, Cout, 21, cuda)
+    x = _to_layout(x, "v1")
+    aligned = _v1_sums(x, k)
+    got = _v1_sums(_at_odd_offset(x), k)
+    torch.cuda.synchronize()
+    for u, v in zip(got, aligned):
+        assert torch.equal(u, v)
+
+
+def test_conv3x3_stats_v1_kernel_is_deterministic_across_tile_seams(cuda):
+    x, k = _inputs((2, 3, 24, 5, 96), 24, 48, 22, cuda)
+    x = _to_layout(x, "v1")
+    a, b = _v1_sums(x, k), _v1_sums(x, k)
     for u, v in zip(a, b):
         assert torch.equal(u, v)
 
