@@ -82,10 +82,12 @@ Phases (any failure exits non-zero; nothing is caught and printed over):
    attic conv, bf16 ``torch.nn.grad.conv3d_weight`` for the weight
    gradients, ``F.instance_norm`` + ``F.leaky_relu`` for the instance-norm
    pair; never called by the port; for the "v1" kernel on its own (B, D,
-   H, C, W) layout, the permutes to and from cuDNN's layout included). At
-   every "v1" shape the kernel also runs on x at an odd element offset,
-   its element-load instance, which must give the aligned run's y, sums
-   and sqs bit for bit (``element_ms`` times it);
+   H, C, W) layout, the permutes to and from cuDNN's layout included; for
+   the instance-norm stats kernel ``torch.var_mean`` over the same
+   (sample, channel) groups). At every "v1" and "v2" shape the kernel also
+   runs on x at an odd element offset, its element-load instance, which
+   must give the aligned run's y, sums and sqs bit for bit (``element_ms``
+   times it);
 10. attic: the four attic kernels against their plain versions, untimed,
    at shapes the bench does not launch: the NDHWC conv at (7, 13, 29,
    5)→11, the NDHWC conv + moments at (6, 9, 11, 24)→40, the instance-norm
@@ -853,8 +855,8 @@ def _stats_case(mod, x_shape, cout, gen, dev, version="v2m"):
     with torch.no_grad():
         max_err, rel = _check(wrap(x, k, packed), plain(x, k))
         ms = cuda_ms(lambda: wrap(x, k, packed), reps=10)
-        if dhcw:
-            extra["element_ms"] = _element_loads_case(mod, x, k, packed)
+        if not stride2 and version in ("v1", "v2"):
+            extra["element_ms"] = _element_loads_case(mod, x, k, packed, version)
         plain_ms = cuda_ms(lambda: plain(x, k), reps=3)
         # Library yardstick: cuDNN bf16 conv in its own NCDHW layout + sums
         # (for the v1 kernel, from and back to the layout the kernel takes).
@@ -893,18 +895,18 @@ def _at_odd_offset(t):
     return view
 
 
-def _element_loads_case(mod, x, k, packed) -> float:
-    """The v1 kernel's element-load instance: x at an odd offset must give
-    the aligned run's y, sums and sqs bit for bit (where W % 8 != 0 both runs
-    take element loads). Returns its time."""
+def _element_loads_case(mod, x, k, packed, version) -> float:
+    """The element-load instance of the "v1" or "v2" kernel: x at an odd
+    offset must give the aligned run's y, sums and sqs bit for bit (where
+    W % 8 != 0 both runs take element loads). Returns its time."""
     xo = _at_odd_offset(x)
-    want = mod._conv3x3_sums(x, k, packed, "v1")
-    got = mod._conv3x3_sums(xo, k, packed, "v1")
+    want = mod._conv3x3_sums(x, k, packed, version)
+    got = mod._conv3x3_sums(xo, k, packed, version)
     for name, u, v in zip(("y", "sums", "sqs"), got, want):
         if not torch.equal(u, v):
-            raise AssertionError(f"v1 at x {tuple(x.shape)}: {name} at an odd offset differs "
-                                 f"from the aligned run")
-    return cuda_ms(lambda: mod._conv3x3_sums(xo, k, packed, "v1"), reps=10)
+            raise AssertionError(f"{version} at x {tuple(x.shape)}: {name} at an odd offset "
+                                 f"differs from the aligned run")
+    return cuda_ms(lambda: mod._conv3x3_sums(xo, k, packed, version), reps=10)
 
 
 def _dw_case(mod, x_shape, cout, gen, dev):
@@ -1100,8 +1102,9 @@ def _attic_norm_cases(shape, dtype, gen, dev, timed: bool = True) -> tuple[dict,
     """The instance-norm stats and apply kernels, alone and as the pair
     (``fused_instance_norm_lrelu``), against their plain versions; returns
     (stats case, apply case). ``timed``: the cases also carry their times,
-    the apply case the pair's times and its library yardstick
-    (``F.instance_norm`` + ``F.leaky_relu``)."""
+    the stats case its library yardstick (``torch.var_mean`` of x in f32
+    per (sample, channel)), the apply case the pair's times and its library
+    yardstick (``F.instance_norm`` + ``F.leaky_relu``)."""
     from runet_tpu_torch.kernels.attic import fused_norm as fn
 
     C = shape[-1]
@@ -1150,6 +1153,8 @@ def _attic_norm_cases(shape, dtype, gen, dev, timed: bool = True) -> tuple[dict,
         times = {
             "stats": cuda_ms(lambda: fn.instance_norm_stats(x), reps=10),
             "stats_plain": cuda_ms(lambda: fn.instance_norm_stats_plain(x), reps=3),
+            "stats_library": cuda_ms(lambda: torch.var_mean(
+                x.float(), dim=(1, 2, 3), correction=0), reps=10),
             "apply": cuda_ms(lambda: fn.instance_norm_lrelu_apply(x, mean, rstd, scale, bias),
                              reps=10),
             "apply_plain": cuda_ms(lambda: fn.instance_norm_lrelu_apply_plain(
@@ -1162,7 +1167,8 @@ def _attic_norm_cases(shape, dtype, gen, dev, timed: bool = True) -> tuple[dict,
     N, B = x.numel(), shape[0]
     nb = N * x.element_size()
     stats_case = {"max_abs_err": stats_err, "rel_err": rel_stats, "ms": times["stats"],
-                  "plain_ms": times["stats_plain"], "library_ms": None, "flops": 3.0 * N,
+                  "plain_ms": times["stats_plain"], "library_ms": times["stats_library"],
+                  "flops": 3.0 * N,
                   **_bound(3.0 * N, nb + 8.0 * B * C, PEAK_F32_FLOPS)}
     apply_case = {"max_abs_err": apply_err.max().item(), "rel_err": 0.0, "ms": times["apply"],
                   "plain_ms": times["apply_plain"], "library_ms": None, "flops": 6.0 * N,
@@ -1309,11 +1315,12 @@ def kernel_lines(measured, path_counts):
     the kernel bench, split in ``launches_by_path``; the bench's count the
     kernels its CUDA graphs replayed). ``max_abs_err`` also covers the
     attic phase's untimed cases. ``library_ms`` is null where no single
-    library call computes the kernel's function (each instance-norm pass
-    alone); the apply kernel's line carries the pair's times (``pair_ms``,
-    ``pair_plain_ms``, ``pair_library_ms``: ``F.instance_norm`` +
-    ``F.leaky_relu``), and the v1 kernel's line the time of its
-    element-load instance over the same shapes (``element_ms``)."""
+    library call computes the kernel's function (the instance-norm apply
+    pass alone; the stats pass has ``torch.var_mean``); the apply kernel's
+    line carries the pair's times (``pair_ms``, ``pair_plain_ms``,
+    ``pair_library_ms``: ``F.instance_norm`` + ``F.leaky_relu``), and the v1
+    and v2 kernels' lines the time of their element-load instance over the
+    same shapes (``element_ms``)."""
     replaces = {
         "conv3x3_stats": "runet_tpu/kernels/fused_block.py:639",
         "conv3x3_s2_stats": "runet_tpu/kernels/strided_conv.py:80",

@@ -97,6 +97,17 @@ _V1_STAGING_SHAPES = [
     (2, 2, 32, 3, 64, 48),    # W = 64, B = 2, H odd, Cout 48
 ]
 
+# The v2 kernel stages its slab and the two W-shifted copies from the same
+# (input line, 8-column chunk) units, each stored once into every copy.
+_V2_STAGING_SHAPES = [
+    (1, 4, 16, 8, 8, 32),     # W = 8: chunks 1-3 lie past W
+    (1, 3, 24, 8, 20, 32),    # W = 20: element loads, one partial chunk
+    (1, 3, 16, 8, 33, 32),    # W = 33: a second tile of one column
+    (1, 2, 1, 8, 96, 32),     # W = 96: three tiles, halo columns across two seams; Cin 1
+    (1, 3, 16, 13, 32, 32),   # H = 13: the TH = 8 tail
+    (2, 3, 40, 8, 24, 48),    # B = 2, Cin 40: a ragged last channel chunk; Cout 48
+]
+
 
 @pytest.mark.parametrize("version", ["v2", "v1"])
 @pytest.mark.parametrize("B,D,C,H,W,Cout", [
@@ -106,6 +117,7 @@ _V1_STAGING_SHAPES = [
     (1, 3, 70, 3, 5, 40),     # tiny deep-level extents
     (1, 8, 320, 8, 8, 320),   # the bottleneck: one block's tile is most of the volume
     *_V1_STAGING_SHAPES,
+    *_V2_STAGING_SHAPES,
 ])
 def test_conv3x3_stats_variant_kernels_match_plain(cuda, version, B, D, C, H, W, Cout):
     x, k = _inputs((B, D, C, H, W), C, Cout, 0, cuda)
@@ -228,28 +240,32 @@ def test_conv3x3_s2_stats_kernel_is_deterministic_across_tile_seams(cuda):
         assert torch.equal(u, v)
 
 
-def _v1_sums(x, k):
-    """The v1 kernel's own (y, sums, sqs), before the means are taken."""
-    return fused_block._conv3x3_sums(x, k, None, "v1")
+def _own_sums(x, k, version):
+    """The kernel's own (y, sums, sqs), before the means are taken."""
+    return fused_block._conv3x3_sums(x, k, None, version)
 
 
-@pytest.mark.parametrize("B,D,C,H,W,Cout", _V1_STAGING_SHAPES)
-def test_conv3x3_stats_v1_element_loads_equal_vector_loads(cuda, B, D, C, H, W, Cout):
-    """x at an odd element offset takes the element-load build; the same
-    values reach the same im2col cells, so y, sums and sqs keep their bits."""
+@pytest.mark.parametrize("version,B,D,C,H,W,Cout",
+                         [("v1", *s) for s in _V1_STAGING_SHAPES]
+                         + [("v2", *s) for s in _V2_STAGING_SHAPES])
+def test_conv3x3_stats_variant_element_loads_equal_vector_loads(cuda, version, B, D, C, H, W,
+                                                                Cout):
+    """x at an odd element offset takes the element-load staging; the same
+    values reach the same shared cells, so y, sums and sqs keep their bits."""
     x, k = _inputs((B, D, C, H, W), C, Cout, 21, cuda)
-    x = _to_layout(x, "v1")
-    aligned = _v1_sums(x, k)
-    got = _v1_sums(_at_odd_offset(x), k)
+    x = _to_layout(x, version)
+    aligned = _own_sums(x, k, version)
+    got = _own_sums(_at_odd_offset(x), k, version)
     torch.cuda.synchronize()
     for u, v in zip(got, aligned):
         assert torch.equal(u, v)
 
 
-def test_conv3x3_stats_v1_kernel_is_deterministic_across_tile_seams(cuda):
+@pytest.mark.parametrize("version", ["v2", "v1"])
+def test_conv3x3_stats_variant_kernels_are_deterministic_across_tile_seams(cuda, version):
     x, k = _inputs((2, 3, 24, 5, 96), 24, 48, 22, cuda)
-    x = _to_layout(x, "v1")
-    a, b = _v1_sums(x, k), _v1_sums(x, k)
+    x = _to_layout(x, version)
+    a, b = _own_sums(x, k, version), _own_sums(x, k, version)
     for u, v in zip(a, b):
         assert torch.equal(u, v)
 
