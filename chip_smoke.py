@@ -84,10 +84,10 @@ Phases (any failure exits non-zero; nothing is caught and printed over):
    pair; never called by the port; for the "v1" kernel on its own (B, D,
    H, C, W) layout, the permutes to and from cuDNN's layout included; for
    the instance-norm stats kernel ``torch.var_mean`` over the same
-   (sample, channel) groups). At every "v1" and "v2" shape the kernel also
-   runs on x at an odd element offset, its element-load instance, which
-   must give the aligned run's y, sums and sqs bit for bit (``element_ms``
-   times it);
+   (sample, channel) groups). At every shape of the three stride-1
+   kernels ("v2m", "v2", "v1") the kernel also runs on x at an odd element
+   offset, its element-load instance, which must give the aligned run's y,
+   sums and sqs bit for bit (``element_ms`` times it);
 10. attic: the four attic kernels against their plain versions, untimed,
    at shapes the bench does not launch: the NDHWC conv at (7, 13, 29,
    5)→11, the NDHWC conv + moments at (6, 9, 11, 24)→40, the instance-norm
@@ -855,7 +855,7 @@ def _stats_case(mod, x_shape, cout, gen, dev, version="v2m"):
     with torch.no_grad():
         max_err, rel = _check(wrap(x, k, packed), plain(x, k))
         ms = cuda_ms(lambda: wrap(x, k, packed), reps=10)
-        if not stride2 and version in ("v1", "v2"):
+        if not stride2:
             extra["element_ms"] = _element_loads_case(mod, x, k, packed, version)
         plain_ms = cuda_ms(lambda: plain(x, k), reps=3)
         # Library yardstick: cuDNN bf16 conv in its own NCDHW layout + sums
@@ -896,9 +896,10 @@ def _at_odd_offset(t):
 
 
 def _element_loads_case(mod, x, k, packed, version) -> float:
-    """The element-load instance of the "v1" or "v2" kernel: x at an odd
-    offset must give the aligned run's y, sums and sqs bit for bit (where
-    W % 8 != 0 both runs take element loads). Returns its time."""
+    """The element-load instance of the stride-1 kernel of ``version``
+    ("v2m", "v2" or "v1"): x at an odd offset must give the aligned run's y,
+    sums and sqs bit for bit (where W % 8 != 0 both runs take element
+    loads). Returns its time."""
     xo = _at_odd_offset(x)
     want = mod._conv3x3_sums(x, k, packed, version)
     got = mod._conv3x3_sums(xo, k, packed, version)
@@ -1318,9 +1319,9 @@ def kernel_lines(measured, path_counts):
     library call computes the kernel's function (the instance-norm apply
     pass alone; the stats pass has ``torch.var_mean``); the apply kernel's
     line carries the pair's times (``pair_ms``, ``pair_plain_ms``,
-    ``pair_library_ms``: ``F.instance_norm`` + ``F.leaky_relu``), and the v1
-    and v2 kernels' lines the time of their element-load instance over the
-    same shapes (``element_ms``)."""
+    ``pair_library_ms``: ``F.instance_norm`` + ``F.leaky_relu``), and the
+    lines of the three stride-1 kernels (v2m, v2, v1) the time of their
+    element-load instance over the same shapes (``element_ms``)."""
     replaces = {
         "conv3x3_stats": "runet_tpu/kernels/fused_block.py:639",
         "conv3x3_s2_stats": "runet_tpu/kernels/strided_conv.py:80",

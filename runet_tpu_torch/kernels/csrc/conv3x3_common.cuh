@@ -3,11 +3,10 @@
 // kernels of conv3x3_ndhwc.cuh, and the dw kernels through
 // conv3x3_dw_common.cuh): the 16-byte chunk load along W, the bf16
 // tensor-core MMA and the transposing ldmatrix, the staging of a chunk's
-// weights, conv3x3_stats.cu's element-wise halo stager, the 27-tap MMA loop
-// over a channel-innermost halo, the epilogue that rounds the output to
-// bf16 and folds it into per-block moment partials, and the second pass
-// that reduces those partials (also the instance-norm statistics' second
-// pass).
+// weights, the 27-tap MMA loop over a channel-innermost halo, the epilogue
+// that rounds the output to bf16 and folds it into per-block moment
+// partials, and the second pass that reduces those partials (also the
+// instance-norm statistics' second pass).
 //
 // Moments are deterministic: each block writes its per-channel partial sums
 // to a scratch slot of its own (fixed-order in-block reduction: per-thread
@@ -89,50 +88,12 @@ __device__ __forceinline__ void stage_weights(bf16* __restrict__ ws, const bf16*
   }
 }
 
-// Stage one KC-channel chunk of the input halo into shared memory, channel
-// innermost: xs[((kd * XR + row) * XC + col) * XS + ci] =
-// x[b, d0 + kd, c0 + ci, h0 + row, w0 + col], zero outside the extent and
-// past channel C (the SAME padding and the channel padding), one element at
-// a time.
-// Consecutive threads read consecutive w (coalesced). Each thread issues U
-// independent loads before it stores any: a load-then-store loop leaves one
-// load in flight per thread and is latency-bound.
-template <int NTHREADS, int KC, int XR, int XC, int XS>
-__device__ __forceinline__ void stage_halo(bf16* __restrict__ xs, const bf16* __restrict__ xb,
-                                           int D, int C, int H, int W, int d0, int h0,
-                                           int w0, int c0) {
-  constexpr int PLANE = XR * XC;  // (row, col) positions per (kd, ci)
-  constexpr int NX = 3 * KC * PLANE;
-  constexpr int U = 8;
-  const int64_t HW = (int64_t)H * W;
-  const bf16 zero = __ushort_as_bfloat16((unsigned short)0);
-  for (int base = threadIdx.x; base < NX; base += NTHREADS * U) {
-    bf16 v[U];
-    int off[U];
-#pragma unroll
-    for (int u = 0; u < U; ++u) {
-      const int e = base + u * NTHREADS;
-      const int q = e / PLANE, p = e - q * PLANE;  // q = kd * KC + ci
-      const int row = p / XC, col = p - row * XC;
-      const int kd = q / KC, ci = q - kd * KC;
-      const int dd = d0 + kd, hh = h0 + row, ww = w0 + col, cc = c0 + ci;
-      off[u] = e < NX ? ((kd * XR + row) * XC + col) * XS + ci : -1;
-      v[u] = zero;
-      if (e < NX && (unsigned)dd < (unsigned)D && (unsigned)hh < (unsigned)H &&
-          (unsigned)ww < (unsigned)W && cc < C)
-        v[u] = xb[((int64_t)dd * C + cc) * HW + (int64_t)hh * W + ww];
-    }
-#pragma unroll
-    for (int u = 0; u < U; ++u)
-      if (off[u] >= 0) xs[off[u]] = v[u];
-  }
-}
-
 // The 27 taps of one staged KC = 16 channel chunk: acc += A * B, where warp
 // `warp` computes output row `warp` of the block (halo row S * warp + kh)
 // over MT*16 output columns (halo column S * m + kw) and NT*8 output
-// channels. xs: the halo as stage_halo lays it out ((kd * XR + row) * XC +
-// col) * XS + ci; ws: the chunk's weights as stage_weights lays them out.
+// channels. xs: the halo, channel innermost: input (kd, row, col) of
+// channel ci at ((kd * XR + row) * XC + col) * XS + ci; ws: the chunk's
+// weights as stage_weights lays them out.
 // S is the conv stride (1 or 2). With XS = WS = 24 both fragment loads are
 // bank-conflict free.
 template <int S, int MT, int NT, int XR, int XC, int XS, int CO_T, int WS>

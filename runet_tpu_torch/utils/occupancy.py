@@ -1,0 +1,110 @@
+"""Registers, spills and resident blocks per SM of the kernels of a CUDA source.
+
+    python -m runet_tpu_torch.utils.occupancy SOURCE KERNEL [KERNEL ...] [--out PATH]
+
+Builds a probe library that includes SOURCE (a ``csrc/*.cu`` file of this
+tree or of another checkout), so that its kernels and constants are in
+scope, and asks the CUDA runtime, for each KERNEL (a C++ expression such as
+``conv3x3_stats_kernel<true>``): ``cudaFuncGetAttributes`` (registers per
+thread, local memory per thread: spills and stack) and
+``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` at the source's own
+``NTHREADS`` threads per block and ``SMEM_BYTES`` bytes of dynamic shared
+memory, as its launcher asks for them. Prints one JSON object with the
+card's name and power limit (also written to ``--out``). Needs a GPU and
+nvcc.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import hashlib
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+import torch
+
+from runet_tpu_torch.kernels import build
+from runet_tpu_torch.utils.health import card_line
+
+_FIELDS = ("registers", "local_bytes", "static_smem_bytes", "blocks_per_sm")
+
+
+def probe_source(source: Path, kernels: list[str]) -> str:
+    """The probe's CUDA text: SOURCE included, one C entry that fills the
+    four figures of kernel ``which`` and returns a cudaError_t."""
+    cases = "\n".join(f"    case {i}: f = reinterpret_cast<const void*>(&{k}); break;"
+                      for i, k in enumerate(kernels))
+    return f"""#include "{Path(source).resolve()}"
+
+extern "C" int occupancy_probe(int which, int* out) {{
+  const void* f = nullptr;
+  switch (which) {{
+{cases}
+    default: return (int)cudaErrorInvalidValue;
+  }}
+  cudaError_t e = cudaFuncSetAttribute(f, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       SMEM_BYTES);
+  if (e != cudaSuccess) return (int)e;
+  cudaFuncAttributes a;
+  e = cudaFuncGetAttributes(&a, f);
+  if (e != cudaSuccess) return (int)e;
+  out[0] = a.numRegs;
+  out[1] = (int)a.localSizeBytes;
+  out[2] = (int)a.sharedSizeBytes;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[3], f, NTHREADS, SMEM_BYTES);
+}}
+"""
+
+
+def probe(source: Path, kernels: list[str]) -> dict[str, dict[str, int]]:
+    """{kernel: {registers, local_bytes, static_smem_bytes, blocks_per_sm}}."""
+    text = probe_source(source, kernels)
+    h = hashlib.sha256(text.encode())
+    h.update(Path(source).read_bytes())
+    for p in sorted(Path(source).resolve().parent.glob("*.cuh")):
+        h.update(p.read_bytes())
+    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    cu = build.BUILD_DIR / f"occupancy-{h.hexdigest()[:16]}.cu"
+    lib_path = cu.with_suffix(".so")
+    cu.write_text(text)
+    proc = subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-o", str(lib_path), str(cu)],
+                          capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for the probe of {source} (rc {proc.returncode}):\n"
+                           f"{proc.stdout}{proc.stderr}")
+    fn = ctypes.CDLL(str(lib_path)).occupancy_probe
+    fn.argtypes, fn.restype = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)], ctypes.c_int
+    out = {}
+    for i, k in enumerate(kernels):
+        vals = (ctypes.c_int * len(_FIELDS))()
+        e = fn(i, vals)
+        if e != 0:
+            raise RuntimeError(f"occupancy probe of {k} in {source}: CUDA error {e}")
+        out[k] = dict(zip(_FIELDS, vals))
+    return out
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("source", type=Path)
+    ap.add_argument("kernels", nargs="+")
+    ap.add_argument("--out", type=Path)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("occupancy: no CUDA device", file=sys.stderr)
+        return 1
+    result = {"card": card_line(), "source": str(args.source),
+              "kernels": probe(args.source, args.kernels)}
+    text = json.dumps(result)
+    if args.out:
+        args.out.parent.mkdir(parents=True, exist_ok=True)
+        args.out.write_text(text + "\n")
+    print(text)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -57,11 +57,26 @@ def assert_conv_stats_close(got, want):
     assert ((m - mr).abs() <= 1e-3 * rms + 1e-6).all(), (m - mr).abs().max()
 
 
+# The v2m kernel stages its halo in (line, 8-column chunk, channel quad)
+# units: four 16-byte loads per unit where W % 8 == 0 and x is 16-byte
+# aligned (element loads otherwise), transposed to channel-innermost in
+# registers, and the columns w0 - 1 and w0 + 32 as single elements.
+_V2M_STAGING_SHAPES = [
+    (1, 4, 16, 8, 8, 32),     # W = 8: chunks 1-3 lie past W
+    (1, 3, 24, 8, 20, 32),    # W = 20: element loads, one partial chunk
+    (1, 3, 16, 8, 33, 32),    # W = 33: a second tile of one column
+    (1, 2, 1, 8, 96, 32),     # W = 96: halo columns across two seams; Cin 1, quads 1-3 past C
+    (1, 3, 16, 13, 32, 32),   # H = 13: the TH = 8 tail
+    (2, 3, 40, 8, 24, 48),    # B = 2, Cin 40: a ragged last quad and chunk; Cout 48
+]
+
+
 @pytest.mark.parametrize("B,D,C,H,W,Cout", [
     (1, 4, 16, 8, 64, 32),
     (1, 6, 1, 10, 40, 24),    # Cin = 1 (enc0), Cout not a tile multiple
     (2, 5, 48, 7, 19, 24),    # ragged tiles, decoder concat width, B = 2
     (1, 3, 70, 3, 5, 40),     # tiny deep-level extents
+    *_V2M_STAGING_SHAPES,
 ])
 def test_conv3x3_stats_kernel_matches_plain(cuda, B, D, C, H, W, Cout):
     x, k = _inputs((B, D, C, H, W), C, Cout, 0, cuda)
@@ -247,7 +262,8 @@ def _own_sums(x, k, version):
 
 @pytest.mark.parametrize("version,B,D,C,H,W,Cout",
                          [("v1", *s) for s in _V1_STAGING_SHAPES]
-                         + [("v2", *s) for s in _V2_STAGING_SHAPES])
+                         + [("v2", *s) for s in _V2_STAGING_SHAPES]
+                         + [("v2m", *s) for s in _V2M_STAGING_SHAPES])
 def test_conv3x3_stats_variant_element_loads_equal_vector_loads(cuda, version, B, D, C, H, W,
                                                                 Cout):
     """x at an odd element offset takes the element-load staging; the same
@@ -261,7 +277,7 @@ def test_conv3x3_stats_variant_element_loads_equal_vector_loads(cuda, version, B
         assert torch.equal(u, v)
 
 
-@pytest.mark.parametrize("version", ["v2", "v1"])
+@pytest.mark.parametrize("version", ["v2m", "v2", "v1"])
 def test_conv3x3_stats_variant_kernels_are_deterministic_across_tile_seams(cuda, version):
     x, k = _inputs((2, 3, 24, 5, 96), 24, 48, 22, cuda)
     x = _to_layout(x, version)

@@ -136,3 +136,22 @@ def test_chip_smoke_replay_counting_adds_the_graph_replays(monkeypatch, iters, r
     assert fused_norm.stats_launches + extra[fused_norm.STATS_SOURCE] == ran
     assert seen[key] == ran
     assert all(v == 0 for k, v in extra.items() if k != fused_norm.STATS_SOURCE)
+
+
+def test_occupancy_probe_includes_the_source_and_names_each_kernel(tmp_path):
+    from runet_tpu_torch.utils import occupancy
+
+    src = tmp_path / "k.cu"
+    text = occupancy.probe_source(src, ["a_kernel<true>", "a_kernel<false>"])
+    assert text.startswith(f'#include "{src.resolve()}"')
+    assert "case 0: f = reinterpret_cast<const void*>(&a_kernel<true>); break;" in text
+    assert "case 1: f = reinterpret_cast<const void*>(&a_kernel<false>); break;" in text
+    assert "f, NTHREADS, SMEM_BYTES)" in text
+
+
+def test_occupancy_exits_nonzero_without_cuda(no_cuda, tmp_path):
+    from runet_tpu_torch.utils import occupancy
+
+    out = tmp_path / "occ.json"
+    assert occupancy.main([str(tmp_path / "k.cu"), "k", "--out", str(out)]) != 0
+    assert not out.exists()
