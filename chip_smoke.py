@@ -85,7 +85,8 @@ Phases (any failure exits non-zero; nothing is caught and printed over):
    H, C, W) layout, the permutes to and from cuDNN's layout included; for
    the instance-norm stats kernel ``torch.var_mean`` over the same
    (sample, channel) groups). At every shape of the three stride-1
-   kernels ("v2m", "v2", "v1") the kernel also runs on x at an odd element
+   kernels ("v2m", "v2", and "v1" with its 4-row x 32-column tiles, built
+   one kd plane at a time) the kernel also runs on x at an odd element
    offset, its element-load instance, which must give the aligned run's y,
    sums and sqs bit for bit (``element_ms`` times it);
 10. attic: the four attic kernels against their plain versions, untimed,

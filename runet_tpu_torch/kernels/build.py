@@ -71,6 +71,29 @@ def _finish_build(job) -> str:
     return log
 
 
+def start_probe(text: str, source: Path, stem: str):
+    """Start ``nvcc`` on a probe: CUDA ``text`` that includes ``source`` (a
+    ``csrc/*.cu`` file of this tree or of another checkout), written to the
+    build directory under a name hashed from the text, the source, the
+    headers beside it and the flags. Returns (library path, job for
+    ``_finish_build`` or None when the library is already built)."""
+    h = hashlib.sha256(text.encode())
+    h.update(Path(source).read_bytes())
+    for p in sorted(Path(source).resolve().parent.glob("*.cuh")):
+        h.update(p.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    cu = BUILD_DIR / f"{stem}-{h.hexdigest()[:16]}.cu"
+    out = cu.with_suffix(".so")
+    if out.exists():
+        return out, None
+    cu.write_text(text)
+    tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
+    proc = subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(cu)],
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    return out, (proc, tmp, out)
+
+
 def build(names) -> dict[str, str]:
     """Compile every named source in parallel (one ``nvcc`` each, all started
     together). Returns the compiler's output per source built now, which

@@ -18,9 +18,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
-import hashlib
 import json
-import subprocess
 import sys
 from pathlib import Path
 
@@ -61,20 +59,9 @@ extern "C" int occupancy_probe(int which, int* out) {{
 
 def probe(source: Path, kernels: list[str]) -> dict[str, dict[str, int]]:
     """{kernel: {registers, local_bytes, static_smem_bytes, blocks_per_sm}}."""
-    text = probe_source(source, kernels)
-    h = hashlib.sha256(text.encode())
-    h.update(Path(source).read_bytes())
-    for p in sorted(Path(source).resolve().parent.glob("*.cuh")):
-        h.update(p.read_bytes())
-    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    cu = build.BUILD_DIR / f"occupancy-{h.hexdigest()[:16]}.cu"
-    lib_path = cu.with_suffix(".so")
-    cu.write_text(text)
-    proc = subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-o", str(lib_path), str(cu)],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for the probe of {source} (rc {proc.returncode}):\n"
-                           f"{proc.stdout}{proc.stderr}")
+    lib_path, job = build.start_probe(probe_source(source, kernels), source, "occupancy")
+    if job is not None:
+        build._finish_build(job)
     fn = ctypes.CDLL(str(lib_path)).occupancy_probe
     fn.argtypes, fn.restype = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)], ctypes.c_int
     out = {}

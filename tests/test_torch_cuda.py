@@ -112,6 +112,19 @@ _V1_STAGING_SHAPES = [
     (2, 2, 32, 3, 64, 48),    # W = 64, B = 2, H odd, Cout 48
 ]
 
+# The v1 kernel's tile is 4 rows, and each block writes its moments into
+# one partial slot per 2-row half that lies in the output: H = 1, 2, 5 and 9
+# leave a 4-row tail tile with one slot, H = 3 and 6 one with two (the
+# second half-empty at H = 3).
+_V1_TILE_SHAPES = [
+    (1, 3, 16, 1, 32, 32),    # H = 1: one tile, one slot, rows 1-3 padding
+    (1, 2, 40, 2, 64, 64),    # H = 2: ragged Cin 40, Cout 64
+    (2, 3, 24, 3, 40, 48),    # H = 3: two slots, row 3 padding; W = 40, B = 2
+    (1, 2, 32, 5, 32, 64),    # H = 5: an odd slot count, a one-slot tail; Cout 64
+    (1, 2, 16, 6, 48, 32),    # H = 6: a tail tile of rows 4-5 only
+    (1, 2, 320, 9, 16, 320),  # H = 9: three tiles, Cin and Cout 320, W = 16
+]
+
 # The v2 kernel stages its slab and the two W-shifted copies from the same
 # (input line, 8-column chunk) units, each stored once into every copy.
 _V2_STAGING_SHAPES = [
@@ -133,6 +146,7 @@ _V2_STAGING_SHAPES = [
     (1, 8, 320, 8, 8, 320),   # the bottleneck: one block's tile is most of the volume
     *_V1_STAGING_SHAPES,
     *_V2_STAGING_SHAPES,
+    *_V1_TILE_SHAPES,
 ])
 def test_conv3x3_stats_variant_kernels_match_plain(cuda, version, B, D, C, H, W, Cout):
     x, k = _inputs((B, D, C, H, W), C, Cout, 0, cuda)
@@ -261,7 +275,7 @@ def _own_sums(x, k, version):
 
 
 @pytest.mark.parametrize("version,B,D,C,H,W,Cout",
-                         [("v1", *s) for s in _V1_STAGING_SHAPES]
+                         [("v1", *s) for s in _V1_STAGING_SHAPES + _V1_TILE_SHAPES]
                          + [("v2", *s) for s in _V2_STAGING_SHAPES]
                          + [("v2m", *s) for s in _V2M_STAGING_SHAPES])
 def test_conv3x3_stats_variant_element_loads_equal_vector_loads(cuda, version, B, D, C, H, W,
@@ -284,6 +298,33 @@ def test_conv3x3_stats_variant_kernels_are_deterministic_across_tile_seams(cuda,
     a, b = _own_sums(x, k, version), _own_sums(x, k, version)
     for u, v in zip(a, b):
         assert torch.equal(u, v)
+
+
+def test_conv3x3_stats_v1_is_deterministic_across_4_row_tile_seams(cuda):
+    """H = 9: three 4-row tiles, five 2-row moment slots, the last tile
+    with one; three column tiles."""
+    x, k = _inputs((2, 3, 24, 9, 96), 24, 48, 23, cuda)
+    x = _to_layout(x, "v1")
+    a, b = _own_sums(x, k, "v1"), _own_sums(x, k, "v1")
+    torch.cuda.synchronize()
+    for u, v in zip(a, b):
+        assert torch.equal(u, v)
+    assert_conv_stats_close(fused_block.conv_in_stats_dhcw_batch(x, k),
+                            fused_block.conv3x3_stats_dhcw_plain(x, k))
+
+
+def test_conv3x3_stats_v1_rejects_unaligned_packed_weights(cuda):
+    """The v1 kernel copies its weights with 16-byte cp.async: packed
+    weights two bytes past a 16-byte boundary make the launch, and so the
+    wrapper, fail rather than run another path."""
+    x, k = _inputs((1, 2, 16, 4, 32), 16, 32, 24, cuda)
+    x = _to_layout(x, "v1")
+    packed = _at_odd_offset(pack_weight(k))
+    assert packed.data_ptr() % 16 == 2
+    n = fused_block.v1_launches
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        fused_block.conv_in_stats_dhcw_batch(x, k, packed)
+    assert fused_block.v1_launches == n
 
 
 def test_kernel_wrappers_count_launches(cuda):

@@ -155,3 +155,22 @@ def test_occupancy_exits_nonzero_without_cuda(no_cuda, tmp_path):
     out = tmp_path / "occ.json"
     assert occupancy.main([str(tmp_path / "k.cu"), "k", "--out", str(out)]) != 0
     assert not out.exists()
+
+
+def test_phase_probe_defines_the_mask_and_includes_the_source(tmp_path):
+    from runet_tpu_torch.utils import phase_probe
+
+    src = tmp_path / "k.cu"
+    text = phase_probe.probe_source(src, 5)
+    assert text.splitlines() == ["#define V1_PHASES 5", f'#include "{src.resolve()}"']
+    assert phase_probe.MASKS == (7, 6, 5, 3)
+    assert phase_probe.SOURCE.name == "conv3x3_stats_v1.cu" and phase_probe.SOURCE.exists()
+    assert "#ifndef V1_PHASES" in phase_probe.SOURCE.read_text()
+
+
+def test_phase_probe_exits_nonzero_without_cuda(no_cuda, tmp_path):
+    from runet_tpu_torch.utils import phase_probe
+
+    out = tmp_path / "phases.json"
+    assert phase_probe.main(["--out", str(out)]) != 0
+    assert not out.exists()
