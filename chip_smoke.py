@@ -88,7 +88,10 @@ Phases (any failure exits non-zero; nothing is caught and printed over):
    kernels ("v2m", "v2", and "v1" with its 4-row x 32-column tiles, built
    one kd plane at a time) the kernel also runs on x at an odd element
    offset, its element-load instance, which must give the aligned run's y,
-   sums and sqs bit for bit (``element_ms`` times it);
+   sums and sqs bit for bit (``element_ms`` times it); at every shape of
+   the stride-1 weight-gradient kernel (two-stage cp.async ring) x, and
+   separately g, at an odd offset must give the aligned run's dw bit for
+   bit (``element_ms`` times the odd x);
 10. attic: the four attic kernels against their plain versions, untimed,
    at shapes the bench does not launch: the NDHWC conv at (7, 13, 29,
    5)→11, the NDHWC conv + moments at (6, 9, 11, 24)→40, the instance-norm
@@ -930,6 +933,9 @@ def _dw_case(mod, x_shape, cout, gen, dev):
     max_err = float((got - want).abs().max())
     if not rel <= DW_TOL:
         raise AssertionError(f"|dw - plain| reaches {rel} of Σ|x||g| (> {DW_TOL})")
+    extra = {}
+    if not stride2:
+        extra["element_ms"] = _dw_element_loads_case(wrap, x, g, got)
     del got, want, bound
     ms = cuda_ms(lambda: wrap(x, g), reps=10)
     plain_ms = cuda_ms(lambda: plain(x, g), reps=3)
@@ -949,7 +955,21 @@ def _dw_case(mod, x_shape, cout, gen, dev):
     flops = 2.0 * 27 * C * cout * n_out
     nbytes = 2.0 * B * D * C * H * W + 2.0 * n_out * cout + 4.0 * 27 * C * cout
     return {"max_abs_err": max_err, "rel_err": rel, "ms": ms, "plain_ms": plain_ms,
-            "library_ms": library_ms, "flops": flops, **_bound(flops, nbytes)}
+            "library_ms": library_ms, "flops": flops, **_bound(flops, nbytes), **extra}
+
+
+def _dw_element_loads_case(wrap, x, g, aligned) -> float:
+    """The element-load instances of the stride-1 weight-gradient kernel: x,
+    and separately g, at an odd offset must give the aligned run's dw bit
+    for bit (where W % 8 != 0 all runs take element loads). Returns the time
+    with x at the odd offset."""
+    xo, go = _at_odd_offset(x), _at_odd_offset(g)
+    for which, u, v in (("x", xo, g), ("g", x, go)):
+        if not torch.equal(wrap(u, v), aligned):
+            raise AssertionError(f"dw at x {tuple(x.shape)}: {which} at an odd offset differs "
+                                 f"from the aligned run")
+    del go
+    return cuda_ms(lambda: wrap(xo, g), reps=10)
 
 
 def phase_kernels(dev, path_shapes):
@@ -1321,8 +1341,9 @@ def kernel_lines(measured, path_counts):
     pass alone; the stats pass has ``torch.var_mean``); the apply kernel's
     line carries the pair's times (``pair_ms``, ``pair_plain_ms``,
     ``pair_library_ms``: ``F.instance_norm`` + ``F.leaky_relu``), and the
-    lines of the three stride-1 kernels (v2m, v2, v1) the time of their
-    element-load instance over the same shapes (``element_ms``)."""
+    lines of the three stride-1 kernels (v2m, v2, v1) and of the stride-1
+    weight gradient the time of their element-load instance over the same
+    shapes (``element_ms``)."""
     replaces = {
         "conv3x3_stats": "runet_tpu/kernels/fused_block.py:639",
         "conv3x3_s2_stats": "runet_tpu/kernels/strided_conv.py:80",

@@ -45,6 +45,42 @@ __device__ __forceinline__ uint4 ld_chunk(const bf16* __restrict__ src, int w, i
   }
 }
 
+// cp.async: a copy from global to shared memory that the issuing thread does
+// not wait for. commit closes the copies it has issued so far into a group;
+// cp_async_wait<N> returns once at most N of its groups are still in flight.
+// The copies are visible to the other threads after the wait and a barrier.
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const uint32_t s = (uint32_t)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem) : "memory");
+}
+
+// 16 bytes from gmem, or 16 zero bytes when !ok (src-size 0: nothing is read).
+__device__ __forceinline__ void cp_async16_zfill(void* smem, const void* gmem, bool ok) {
+  const uint32_t s = (uint32_t)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem),
+               "r"(ok ? 16 : 0)
+               : "memory");
+}
+
+// 4 bytes from gmem, or 4 zero bytes when !ok; smem and gmem 4-byte aligned.
+__device__ __forceinline__ void cp_async4_zfill(void* smem, const void* gmem, bool ok) {
+  const uint32_t s = (uint32_t)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(gmem),
+               "r"(ok ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() { cp_async_wait<0>(); }
+
 // D = A(16x16, row) * B(16x8, col) + D with bf16 inputs and f32 accumulators.
 // Fragment ownership (g = lane / 4, t = lane % 4):
 //   a[0]: A[g][2t..2t+1]   a[1]: A[g+8][2t..2t+1]

@@ -16,19 +16,23 @@
 // into per-block f32 partials that a second pass sums in a fixed order
 // (bit-identical across runs, no float atomics). The TPU kernel shifted g
 // with rolls and masks to keep its lanes aligned; here the input halo is
-// staged with column w0 on a 16-byte boundary, in 16-byte chunks (one index
-// computation per 8 elements), and the kw = 0 and kw = 2 taps' misaligned A
-// fragments are one byte-permute each of the aligned kw = 1 word and its
-// neighbour.
+// staged with column w0 on a 16-byte boundary, in 16-byte chunks, and the
+// kw = 0 and kw = 2 taps' misaligned A fragments are one byte-permute each
+// of the aligned kw = 1 word and its neighbour.
 //
 // What bounds it on the H100: the same FLOPs as the forward conv
 // (2*27*C*Cout per voxel) over bytes that are read once (x and g), ~27*Cout/2
 // FLOP per byte, so at the U-Net's level-0 widths (C, Cout = 32..64) it is
-// tensor-core bound (above the ~295 FLOP/byte ridge). Element-wise staging
-// issued about three times the instructions of the MMAs it fed; the chunked
-// staging cuts that to about a quarter of them. Staging is still synchronous
-// (stage, sync, MMAs): a cp.async/TMA ring that overlaps it with the MMAs,
-// and wgmma, are the next steps toward the bound.
+// tensor-core bound (above the ~295 FLOP/byte ridge). Staging the K-tiles
+// synchronously (stage, sync, MMAs) left it at 150-190 TFLOP/s where W >= 32;
+// each K-tile now goes through a two-stage cp.async ring in two halves, so a
+// block's copies are in flight during its MMAs, and at W <= 16 the k-step
+// over the all-zero columns 16-31 is skipped. The DW1_PHASES mask of
+// conv3x3_dw_s1.cuh lets utils/phase_probe.py time each phase's share (H100
+// 80GB HBM3, 700 W; PERF.md §6): at B 2, 128³, 32->32 the kernel without its
+// MMAs still takes 0.83 of its 1.15 ms, as the x halo is read again for each
+// of its three kd planes and each 4-row half (36 lines per 8 output rows);
+// at 32³ 128->128 and 16³ 256->256 the MMAs are the largest share.
 #include "conv3x3_dw_s1.cuh"
 
 extern "C" {

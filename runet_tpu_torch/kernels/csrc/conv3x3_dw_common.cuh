@@ -10,12 +10,14 @@
 // K-tile is TH output rows x TW = 32 output columns of one (b, d). For each
 // K-tile the block stages the input halo (3 planes x XR rows x 16 channels,
 // column innermost, in the stride's own line layout) and the g tile (TH rows
-// x 32 channels x 32 columns) in shared memory, both in 16-byte chunks;
-// warp (kd, kh) then runs the three kw taps of its (kd, kh) as 3 m16 tiles
-// against 4 n8 tiles, two 16-voxel k-steps per row.
+// x 32 channels x 32 columns) in shared memory, both in 16-byte chunks (the
+// stride-1 kernel in two halves through a cp.async ring); warp (kd, kh) then
+// runs the three kw taps of its (kd, kh) as 3 m16 tiles against 4 n8 tiles,
+// two 16-voxel k-steps per row.
 //
 // This file holds what the two kernels share: the tile geometry (DwGeom),
-// the g stager (16-byte chunks, conv3x3_common.cuh's ld_chunk), the write
+// the g stager of whole K-tiles (16-byte chunks, conv3x3_common.cuh's
+// ld_chunk; the stride-1 kernel stages half K-tiles with its own), the write
 // of a block's partial dw, and the split count and second pass. Each block
 // writes its f32 partial dw for its split to a slot of its own;
 // reduce_splits then sums the slots of each weight in a fixed order. No

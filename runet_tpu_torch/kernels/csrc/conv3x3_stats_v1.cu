@@ -96,19 +96,6 @@ constexpr int SLOTS = TH / SLOT_TH;  // slots per block
 static_assert(KS % 8 == 0 && (KS * 2) % 128 == 16, "ldmatrix rows: aligned and conflict-free");
 static_assert((SMEM_COL * 2) % 16 == 0 && (WS * 2) % 16 == 0, "cp.async targets: 16-byte aligned");
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const uint32_t s = (uint32_t)__cvta_generic_to_shared(smem);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
 // Issue the copies of plane kd's weights for one 16-channel chunk:
 // ws[(tap * CO_T + co) * WS + ci] = wt[kd * 9 + tap, co0 + co, c0 + ci], two
 // 16-byte cp.async per (tap, cout) row, 4.5 per thread, as one group.
@@ -120,9 +107,9 @@ __device__ __forceinline__ void stage_weights_async(bf16* __restrict__ ws,
     const int co = r % CO_T, tap = r / CO_T;
     const bf16* src =
         wt + ((int64_t)(kd * TAPS + tap) * Cout_pad + co0 + co) * Cin_pad + c0 + half * 8;
-    cp_async16(ws + (tap * CO_T + co) * WS + half * 8, src);
+    convk::cp_async16(ws + (tap * CO_T + co) * WS + half * 8, src);
   }
-  cp_async_commit();
+  convk::cp_async_commit();
 }
 
 // One phase's im2col tile from 16-byte chunks along W. The phase reads
@@ -334,7 +321,7 @@ conv3x3_stats_v1_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wt,
         load_units<VX>(un, xb, D, H, C, W, d + kd - 1, h0, w0, c0);
         store_units(col, un);
       }
-      cp_async_wait_all();
+      convk::cp_async_wait_all();
       __syncthreads();
 
       // The plane's 9 k16 steps; B fragments loaded once for both m tiles.

@@ -1,19 +1,23 @@
-"""Per-phase times of the v1 conv kernel (``csrc/conv3x3_stats_v1.cu``).
+"""Per-phase times of the v1 conv kernel (``csrc/conv3x3_stats_v1.cu``) or
+of the stride-1 weight-gradient kernel (``csrc/conv3x3_dw.cu``).
 
-    python -m runet_tpu_torch.utils.phase_probe [--source PATH] [--out PATH]
+    python -m runet_tpu_torch.utils.phase_probe [--kernel {v1,dw1}] [--source PATH] [--out PATH]
 
-The kernel guards its three phases with a compile-time mask, ``V1_PHASES``
-(1 the im2col build, 2 the weight staging, 4 the GEMM; 7 when undefined).
-This builds the source (this tree's, or another checkout's with
-``--source``) four times, as probe libraries that ``#define V1_PHASES`` to
-7, 6, 5 and 3 and then ``#include`` the source, and times each library's
-``conv3x3_stats_v1_launch`` (the conv kernel and its moment reduction) with
-CUDA events at three geometries, on the same random inputs: B 2, 128³,
-32→32; B 2, 32³, 128→128; B 1, 8³, 320→320. A phase's share is
-1 − t(without it) / t(all). A build without a phase computes a wrong y:
-only its time is read. Prints one JSON object with the ms per mask, the
-shares and the card's name and power limit (also written to ``--out``).
-Needs a GPU and nvcc.
+Each kernel guards its three phases with a compile-time mask, 7 when
+undefined: ``V1_PHASES`` for v1 (1 the im2col build, 2 the weight staging,
+4 the GEMM), ``DW1_PHASES`` for dw1 (in ``conv3x3_dw_s1.cuh``: 1 the x
+staging, 2 the g staging, 4 the MMAs). This builds the source (this tree's,
+or another checkout's with ``--source``) four times, as probe libraries that
+``#define`` the mask to 7, 6, 5 and 3 and then ``#include`` the source, and
+times each library's launch entry with CUDA events at three geometries, on
+the same random inputs: for v1 ``conv3x3_stats_v1_launch`` (the conv kernel
+and its moment reduction) at B 2, 128³, 32→32; B 2, 32³, 128→128; B 1, 8³,
+320→320; for dw1 ``conv3x3_dw_launch`` (the dw kernel and its split
+reduction) at B 2, 128³, 32→32; B 2, 32³, 128→128; B 2, 16³, 256→256. A
+phase's share is 1 − t(without it) / t(all). A build without a phase
+computes a wrong output: only its time is read. Prints one JSON object with
+the ms per mask, the shares and the card's name and power limit (also
+written to ``--out``). Needs a GPU and nvcc.
 """
 
 from __future__ import annotations
@@ -22,48 +26,23 @@ import argparse
 import ctypes
 import json
 import sys
+from dataclasses import dataclass
 from pathlib import Path
 
 import torch
 
 from runet_tpu_torch.kernels import build
-from runet_tpu_torch.kernels.conv_common import _CONV_STATS_API, pack_weight
+from runet_tpu_torch.kernels.conv_common import _CONV_DW_API, _CONV_STATS_API, pack_weight
 from runet_tpu_torch.utils.health import card_line
 
-SOURCE = build.CSRC / "conv3x3_stats_v1.cu"
-ALL = 7
-# The phase each mask leaves out.
-WITHOUT = {"build": 6, "weights": 5, "gemm": 3}
-MASKS = (ALL, *WITHOUT.values())
-# name: (B, edge of the cubic volume, Cin, Cout)
-GEOMETRIES = {"128^3 32->32": (2, 128, 32, 32), "32^3 128->128": (2, 32, 128, 128),
-              "8^3 320->320": (1, 8, 320, 320)}
 
-
-def probe_source(source: Path, mask: int) -> str:
+def probe_source(source: Path, mask: int, macro: str = "V1_PHASES") -> str:
     """The probe's CUDA text: the phase mask, then SOURCE included."""
-    return f'#define V1_PHASES {mask}\n#include "{Path(source).resolve()}"\n'
+    return f'#define {macro} {mask}\n#include "{Path(source).resolve()}"\n'
 
 
-def build_probes(source: Path, masks=MASKS) -> dict[int, ctypes.CDLL]:
-    """One library per mask, compiled in parallel into the build directory,
-    with the launch and nblk entries bound."""
-    jobs = {m: build.start_probe(probe_source(source, m), source, "phase") for m in masks}
-    libs = {}
-    for mask, (path, job) in jobs.items():
-        if job is not None:
-            build._finish_build(job)
-        lib = ctypes.CDLL(str(path))
-        for suffix in ("launch", "nblk"):
-            fn = getattr(lib, f"conv3x3_stats_v1_{suffix}")
-            fn.argtypes, fn.restype = _CONV_STATS_API[suffix]
-        libs[mask] = lib
-    return libs
-
-
-def time_masks(libs: dict[int, ctypes.CDLL], shape, gen, n=20, rounds=3) -> dict[int, float]:
-    """ms per launch of each library at (B, edge, Cin, Cout): ``rounds``
-    turns over the masks, ``n`` chained launches each; the least per mask."""
+def _v1_launcher(libs, shape, gen):
+    """A launch of one v1 probe library at (B, edge, Cin, Cout)."""
     B, e, cin, cout = shape
     dev = torch.device("cuda")
     x = torch.randn((B, e, e, cin, e), generator=gen, device=dev).to(torch.bfloat16)
@@ -80,23 +59,94 @@ def time_masks(libs: dict[int, ctypes.CDLL], shape, gen, n=20, rounds=3) -> dict
     stream = torch.cuda.current_stream(dev).cuda_stream
 
     def launch(lib):
-        rc = lib.conv3x3_stats_v1_launch(x.data_ptr(), packed.data_ptr(), y.data_ptr(),
-                                         psum.data_ptr(), psq.data_ptr(), sums.data_ptr(),
-                                         sqs.data_ptr(), B, e, cin, e, e, cout, cin_p, cout_p,
-                                         stream)
+        return lib.conv3x3_stats_v1_launch(x.data_ptr(), packed.data_ptr(), y.data_ptr(),
+                                           psum.data_ptr(), psq.data_ptr(), sums.data_ptr(),
+                                           sqs.data_ptr(), B, e, cin, e, e, cout, cin_p, cout_p,
+                                           stream)
+    return launch
+
+
+def _dw1_launcher(libs, shape, gen):
+    """A launch of one dw1 probe library at (B, edge, Cin, Cout)."""
+    B, e, cin, cout = shape
+    dev = torch.device("cuda")
+    x = torch.randn((B, e, cin, e, e), generator=gen, device=dev).to(torch.bfloat16)
+    g = torch.randn((B, e, cout, e, e), generator=gen, device=dev).to(torch.bfloat16)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    n_splits = int(next(iter(libs.values())).conv3x3_dw_splits(B, e, e, e, cin, cout, sms))
+    part = torch.empty((n_splits, 27, cin, cout), dtype=torch.float32, device=dev)
+    dw = torch.empty((3, 3, 3, cin, cout), dtype=torch.float32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def launch(lib):
+        return lib.conv3x3_dw_launch(x.data_ptr(), g.data_ptr(), part.data_ptr(), dw.data_ptr(),
+                                     B, e, cin, e, e, cout, n_splits, stream)
+    return launch
+
+
+@dataclass(frozen=True)
+class Kernel:
+    source: Path  # the .cu file the probe includes
+    macro: str  # the phase mask it reads
+    prefix: str  # the C entries' common prefix
+    api: dict  # {suffix: (argtypes, restype)} of the entries bound
+    without: dict  # phase name -> the mask that leaves it out
+    geometries: dict  # name -> (B, edge of the cubic volume, Cin, Cout)
+    launcher: object  # (libs, shape, generator) -> launch(lib) on fresh inputs
+
+
+KERNELS = {
+    "v1": Kernel(build.CSRC / "conv3x3_stats_v1.cu", "V1_PHASES", "conv3x3_stats_v1",
+                 {k: _CONV_STATS_API[k] for k in ("launch", "nblk")},
+                 {"build": 6, "weights": 5, "gemm": 3},
+                 {"128^3 32->32": (2, 128, 32, 32), "32^3 128->128": (2, 32, 128, 128),
+                  "8^3 320->320": (1, 8, 320, 320)}, _v1_launcher),
+    "dw1": Kernel(build.CSRC / "conv3x3_dw.cu", "DW1_PHASES", "conv3x3_dw", _CONV_DW_API,
+                  {"x": 6, "g": 5, "mma": 3},
+                  {"128^3 32->32": (2, 128, 32, 32), "32^3 128->128": (2, 32, 128, 128),
+                   "16^3 256->256": (2, 16, 256, 256)}, _dw1_launcher),
+}
+SOURCE = KERNELS["v1"].source
+ALL = 7
+MASKS = (ALL, 6, 5, 3)
+
+
+def build_probes(kernel: Kernel, source: Path, masks=MASKS) -> dict[int, ctypes.CDLL]:
+    """One library per mask, compiled in parallel into the build directory,
+    with the kernel's entries bound."""
+    jobs = {m: build.start_probe(probe_source(source, m, kernel.macro), source, "phase")
+            for m in masks}
+    libs = {}
+    for mask, (path, job) in jobs.items():
+        if job is not None:
+            build._finish_build(job)
+        lib = ctypes.CDLL(str(path))
+        for suffix, (argtypes, restype) in kernel.api.items():
+            fn = getattr(lib, f"{kernel.prefix}_{suffix}")
+            fn.argtypes, fn.restype = argtypes, restype
+        libs[mask] = lib
+    return libs
+
+
+def time_masks(libs: dict[int, ctypes.CDLL], launch, n=20, rounds=3) -> dict[int, float]:
+    """ms per launch of each library: ``rounds`` turns over the masks, ``n``
+    chained launches each; the least per mask. ``launch(lib)`` returns the
+    entry's CUDA error code."""
+    def run(lib):
+        rc = launch(lib)
         if rc != 0:
-            raise RuntimeError(f"conv3x3_stats_v1 probe launch failed with CUDA error {rc}")
+            raise RuntimeError(f"phase probe launch failed with CUDA error {rc}")
 
     best = {}
     for _ in range(rounds):
         for mask, lib in libs.items():
             for _ in range(2):
-                launch(lib)
+                run(lib)
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
             for _ in range(n):
-                launch(lib)
+                run(lib)
             end.record()
             torch.cuda.synchronize()
             ms = start.elapsed_time(end) / n
@@ -106,20 +156,25 @@ def time_masks(libs: dict[int, ctypes.CDLL], shape, gen, n=20, rounds=3) -> dict
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--source", type=Path, default=SOURCE)
+    ap.add_argument("--kernel", choices=sorted(KERNELS), default="v1")
+    ap.add_argument("--source", type=Path)
     ap.add_argument("--out", type=Path)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("phase_probe: no CUDA device", file=sys.stderr)
         return 1
-    libs = build_probes(args.source)
+    kernel = KERNELS[args.kernel]
+    source = args.source or kernel.source
+    libs = build_probes(kernel, source)
     gen = torch.Generator(device="cuda").manual_seed(0)
     geoms = {}
-    for name, shape in GEOMETRIES.items():
-        ms = time_masks(libs, shape, gen)
+    for name, shape in kernel.geometries.items():
+        ms = time_masks(libs, kernel.launcher(libs, shape, gen))
         geoms[name] = {"shape": list(shape), "ms": {str(m): ms[m] for m in MASKS},
-                       "share": {ph: 1.0 - ms[m] / ms[ALL] for ph, m in WITHOUT.items()}}
-    result = {"card": card_line(), "source": str(args.source), "geometries": geoms}
+                       "share": {ph: 1.0 - ms[m] / ms[ALL] for ph, m in kernel.without.items()}}
+    result = {"card": card_line(), "source": str(source), "geometries": geoms}
+    if args.kernel != "v1":
+        result["kernel"] = args.kernel
     text = json.dumps(result)
     if args.out:
         args.out.parent.mkdir(parents=True, exist_ok=True)

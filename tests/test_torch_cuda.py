@@ -388,7 +388,21 @@ _DW_STAGING_SHAPES = [
 ]
 
 
-@pytest.mark.parametrize("B,D,C,H,W,Cout", _DW_STAGING_SHAPES)
+# The stride-1 kernel stages each K-tile (8 rows x 32 columns) as two
+# 4-row halves through a two-stage ring, and skips the k-step over columns
+# 16-31 of a tile where they lie past W. Shapes at the ring's seams (split
+# counts as on an H100 SXM, 132 SMs):
+_DW_RING_SHAPES = [
+    (1, 2, 16, 8, 32, 32),      # two splits of one K-tile each
+    (2, 9, 176, 8, 32, 256),    # six splits of three K-tiles (six half-tiles) each
+    (1, 3, 17, 4, 24, 8),       # W = 24: columns 16-23 real; H = 4: lower halves past H
+    (1, 4, 1, 5, 40, 33),       # W = 40: tile 0 runs both k-steps, tile 1 one; H = 5
+    (2, 3, 48, 12, 16, 40),     # W = 16: one k-step; H = 12: the second tile half real
+    (1, 3, 24, 12, 8, 33),      # W = 8: one k-step; Cout = 33
+]
+
+
+@pytest.mark.parametrize("B,D,C,H,W,Cout", _DW_STAGING_SHAPES + _DW_RING_SHAPES)
 def test_conv3x3_dw_staging_paths_match_plain(cuda, B, D, C, H, W, Cout):
     x, g = _dw_inputs((B, D, C, H, W), (B, D, Cout, H, W), 12, cuda)
     dw = fused_block.conv3x3_dw(x, g)
@@ -399,7 +413,7 @@ def test_conv3x3_dw_staging_paths_match_plain(cuda, B, D, C, H, W, Cout):
 
 
 @pytest.mark.parametrize("unaligned", ["x", "g"])
-@pytest.mark.parametrize("B,D,C,H,W,Cout", _DW_STAGING_SHAPES)
+@pytest.mark.parametrize("B,D,C,H,W,Cout", _DW_STAGING_SHAPES + _DW_RING_SHAPES)
 def test_conv3x3_dw_element_loads_equal_vector_loads(cuda, unaligned, B, D, C, H, W, Cout):
     """x or g at an odd element offset takes the element-load staging; the
     same values reach the same fragments, so dw has the same bits."""
@@ -414,6 +428,60 @@ def test_conv3x3_dw_element_loads_equal_vector_loads(cuda, unaligned, B, D, C, H
     assert torch.equal(dw, aligned)
     assert_dw_close(dw, fused_block.conv3x3_dw_plain(x, g),
                     fused_block.conv3x3_dw_plain(x.abs(), g.abs()))
+
+
+def test_dw_ring_shapes_split_as_their_comments_say(cuda):
+    from runet_tpu_torch.kernels.conv_common import _CONV_DW_API, _library
+
+    if torch.cuda.get_device_properties(cuda).multi_processor_count != 132:
+        pytest.skip("the split counts are those of a 132-SM card")
+    lib = _library(fused_block.DW_SOURCE, _CONV_DW_API)
+
+    def tiles_per_split(B, D, C, H, W, Cout):
+        n = int(lib.conv3x3_dw_splits(B, D, H, W, C, Cout, 132))
+        k = B * D * -(-H // 8) * -(-W // 32)
+        return [k * (s + 1) // n - k * s // n for s in range(n)]
+
+    assert tiles_per_split(*_DW_RING_SHAPES[0]) == [1, 1]
+    assert tiles_per_split(*_DW_RING_SHAPES[1]) == [3] * 6
+
+
+# sha256 of dw's bytes from numpy inputs (seed 21) at six shapes: three
+# main-path level shapes at D = 4 (levels 0, 2 and 3 of fine_kits, B 2) and
+# three ring seams, recorded from the kernel that staged whole K-tiles
+# synchronously, before the two-stage ring, on an NVIDIA H100 80GB HBM3 (132
+# SMs). The split count, and so the order of the f32 sums, follows the SM
+# count.
+_DW_DIGESTS = {
+    (2, 4, 32, 128, 128, 32):
+        "70456dcedc85ddfdc40326d3e38dc6e4942f86bdb6416ba6e840b73a8c6692fc",
+    (2, 4, 128, 32, 32, 128):
+        "5fea9da3868a3c4335b096a518ba6ffd44be089d8bcc801d9d6cec8acfbc71db",
+    (2, 4, 256, 16, 16, 256):
+        "9fe4d9a133d5e1911a764597dcb8aba19c7b82be577bd6be35655fed24103500",
+    (2, 9, 176, 8, 32, 256):
+        "9095232b08cd068b0196b5e4ac9f05aeeb10ce892033970e8df35b0ab317e23b",
+    (1, 3, 17, 4, 24, 8):
+        "176726aab152b4815057636efe7922b199117d19fd74a2a0a47efdb8eb280df3",
+    (1, 4, 1, 5, 40, 33):
+        "1257caf7499751466e883723b72fd5d90eb78475bb29f8c3fcdf197f0c142f62",
+}
+
+
+def _dw_digest(shape, device):
+    import hashlib
+
+    B, D, C, H, W, Cout = shape
+    x, g = _dw_inputs((B, D, C, H, W), (B, D, Cout, H, W), 21, device)
+    dw = fused_block.conv3x3_dw(x, g)
+    return hashlib.sha256(dw.cpu().numpy().tobytes()).hexdigest()
+
+
+@pytest.mark.parametrize("shape", list(_DW_DIGESTS))
+def test_conv3x3_dw_keeps_its_recorded_bits(cuda, shape):
+    if torch.cuda.get_device_properties(cuda).multi_processor_count != 132:
+        pytest.skip("the digests were recorded on a 132-SM card")
+    assert _dw_digest(shape, cuda) == _DW_DIGESTS[shape]
 
 
 def test_conv3x3_dw_kernel_is_deterministic_across_tile_seams(cuda):

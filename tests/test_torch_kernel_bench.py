@@ -149,6 +149,18 @@ def test_occupancy_probe_includes_the_source_and_names_each_kernel(tmp_path):
     assert "f, NTHREADS, SMEM_BYTES)" in text
 
 
+def test_occupancy_probe_takes_the_block_size_and_shared_memory_it_is_given(tmp_path):
+    from runet_tpu_torch.utils import occupancy
+
+    src = tmp_path / "k.cu"
+    text = occupancy.probe_source(src, ["k<true, true>"], "convk::DwGeom<1>::NTHREADS",
+                                  "convk::DwS1::SMEM_BYTES")
+    assert "case 0: f = reinterpret_cast<const void*>(&k<true, true>); break;" in text
+    assert text.count("convk::DwS1::SMEM_BYTES") == 2
+    assert "f, convk::DwGeom<1>::NTHREADS, convk::DwS1::SMEM_BYTES)" in text
+    assert "f, NTHREADS, SMEM_BYTES)" not in text
+
+
 def test_occupancy_exits_nonzero_without_cuda(no_cuda, tmp_path):
     from runet_tpu_torch.utils import occupancy
 
@@ -173,4 +185,30 @@ def test_phase_probe_exits_nonzero_without_cuda(no_cuda, tmp_path):
 
     out = tmp_path / "phases.json"
     assert phase_probe.main(["--out", str(out)]) != 0
+    assert not out.exists()
+
+
+def test_phase_probe_dw1_defines_its_mask_and_includes_the_source(tmp_path):
+    from runet_tpu_torch.kernels import build
+    from runet_tpu_torch.utils import phase_probe
+
+    src = tmp_path / "k.cu"
+    text = phase_probe.probe_source(src, 3, "DW1_PHASES")
+    assert text.splitlines() == ["#define DW1_PHASES 3", f'#include "{src.resolve()}"']
+    dw1 = phase_probe.KERNELS["dw1"]
+    assert dw1.macro == "DW1_PHASES" and dw1.source.name == "conv3x3_dw.cu"
+    assert dw1.source.exists() and '#include "conv3x3_dw_s1.cuh"' in dw1.source.read_text()
+    assert "#ifndef DW1_PHASES" in (build.CSRC / "conv3x3_dw_s1.cuh").read_text()
+    assert dw1.without == {"x": 6, "g": 5, "mma": 3}
+    assert sorted(dw1.geometries.values()) == [(2, 16, 256, 256), (2, 32, 128, 128),
+                                               (2, 128, 32, 32)]
+    for kernel in phase_probe.KERNELS.values():
+        assert tuple(kernel.without.values()) == phase_probe.MASKS[1:]
+
+
+def test_phase_probe_dw1_exits_nonzero_without_cuda(no_cuda, tmp_path):
+    from runet_tpu_torch.utils import phase_probe
+
+    out = tmp_path / "phases.json"
+    assert phase_probe.main(["--kernel", "dw1", "--out", str(out)]) != 0
     assert not out.exists()
