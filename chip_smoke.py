@@ -91,10 +91,17 @@ Phases (any failure exits non-zero; nothing is caught and printed over):
    sums and sqs bit for bit (``element_ms`` times it); at every shape of
    the stride-1 weight-gradient kernel (two-stage cp.async ring) x, and
    separately g, at an odd offset must give the aligned run's dw bit for
-   bit (``element_ms`` times the odd x);
+   bit (``element_ms`` times the odd x); at every shape of the attic NDHWC
+   conv + moments (its tile follows W, its kd planes go through a cp.async
+   ring) x at an odd offset must give the aligned run's y, sums and sqs bit
+   for bit, and where C == Cout the kernel and its library yardstick are
+   also timed in a CUDA graph (``scanned_ms``, the kernel bench's
+   protocol: ``graph_ms``, ``graph_library_ms``);
 10. attic: the four attic kernels against their plain versions, untimed,
    at shapes the bench does not launch: the NDHWC conv at (7, 13, 29,
-   5)→11, the NDHWC conv + moments at (6, 9, 11, 24)→40, the instance-norm
+   5)→11, the NDHWC conv + moments (x also at an odd offset, bits equal)
+   at (6, 9, 11, 24)→40, W = 16 and 17 (4, 12, W, 64)→64, a ragged
+   16-row tile (5, 13, 16, 128)→96 and Cout 80 (3, 9, 33, 40)→80, the instance-norm
    stats and apply kernels (alone and as the pair) at (1, 8, 8, 8, 320)
    bf16 and at (1, 3, 5, 7, 20) bf16 and f32. Then the gradient of the
    attic conv's autograd Function (dx through the kernel, dw by the
@@ -1031,7 +1038,9 @@ def phase_kernels(dev, path_shapes):
                     f"bound {case['bound_ms']:.4f} ({case['bound_by']}) "
                     f"{case['flops'] / case['ms'] / 1e9:.1f} TFLOP/s"
                     + (f" element loads {case['element_ms']:.4f} (bits equal)"
-                       if "element_ms" in case else ""))
+                       if "element_ms" in case else "")
+                    + (f" graph {case['graph_ms']:.4f} graph library "
+                       f"{case['graph_library_ms']:.4f}" if "graph_ms" in case else ""))
             out.setdefault(name, []).append(case)
     log(f"[kernels] {len(timed)} distinct (kernel, shape) cases held against their plain "
         f"versions")
@@ -1066,7 +1075,9 @@ def phase_kernels(dev, path_shapes):
 # dtype) for the instance-norm kernels; shapes with no multiple of 8 or 16
 # anywhere, the deepest level's norm, and f32.
 ATTIC_CONV_CASES = [("odd", (7, 13, 29, 5), 11)]
-ATTIC_V3_CASES = [("odd", (6, 9, 11, 24), 40)]
+ATTIC_V3_CASES = [("odd", (6, 9, 11, 24), 40), ("W 16", (4, 12, 16, 64), 64),
+                  ("W 17", (4, 12, 17, 64), 64), ("ragged H", (5, 13, 16, 128), 96),
+                  ("Cout 80", (3, 9, 33, 40), 80)]
 ATTIC_NORM_CASES = [("deep", (1, 8, 8, 8, 320), torch.bfloat16),
                     ("odd", (1, 3, 5, 7, 20), torch.bfloat16),
                     ("odd f32", (1, 3, 5, 7, 20), torch.float32)]
@@ -1075,9 +1086,15 @@ ATTIC_NORM_CASES = [("deep", (1, 8, 8, 8, 320), torch.bfloat16),
 def _attic_conv_case(stats: bool, shape, cout, gen, dev, timed: bool = True) -> dict:
     """The NDHWC conv (``stats``: with moments) against its plain version on
     random inputs; ``timed``: also timed beside the plain version and
-    cuDNN's bf16 conv (+ sums)."""
+    cuDNN's bf16 conv (+ sums), chained (``cuda_ms``), and with moments
+    where C == Cout also in a CUDA graph (``utils/latency.py``'s
+    ``scanned_ms``, the kernel bench's protocol: ``graph_ms``,
+    ``graph_library_ms``). With moments, x at an odd offset (the
+    element-load instance) must give the aligned run's y, sums and sqs bit
+    for bit."""
     from runet_tpu_torch.kernels.attic import conv3d, conv_v3_deep
     from runet_tpu_torch.kernels.conv_common import pack_weight
+    from runet_tpu_torch.utils.latency import scanned_ms
 
     D, H, W, C = shape
     n = D * H * W
@@ -1096,6 +1113,12 @@ def _attic_conv_case(stats: bool, shape, cout, gen, dev, timed: bool = True) -> 
         if stats:
             max_err, rel = _check(((got[0]), got[1] / n, got[2] / n),
                                   (want[0], want[1] / n, want[2] / n))
+            odd = conv_v3_deep.conv3x3_v3(_at_odd_offset(x), w, packed)
+            for name, u, v in zip(("y", "sums", "sqs"), odd, got):
+                if not torch.equal(u, v):
+                    raise AssertionError(f"v3 at x {tuple(shape)}->{cout}: {name} at an odd "
+                                         f"offset differs from the aligned run")
+            del odd
         else:
             max_err, rel = _check_y(got, want), 0.0
         del got, want
@@ -1114,10 +1137,21 @@ def _attic_conv_case(stats: bool, shape, cout, gen, dev, timed: bool = True) -> 
             return y
 
         library_ms = cuda_ms(lib, reps=10)
+        graph = {}
+        if stats and C == cout:
+            def lib_step(xx):
+                y = F.conv3d(xx, wc, padding=1)
+                yf = y.float()
+                yf.sum((2, 3, 4)), (yf * yf).sum((2, 3, 4))
+                return y
+
+            graph = {"graph_ms": scanned_ms(lambda xx: conv_v3_deep.conv3x3_v3(xx, w, packed)[0],
+                                            x),
+                     "graph_library_ms": scanned_ms(lib_step, xc)}
     flops = 2.0 * 27 * C * cout * n
     nbytes = 2.0 * n * C + 2.0 * 27 * C * cout + 2.0 * n * cout + (8.0 * cout if stats else 0)
     return {"max_abs_err": max_err, "rel_err": rel, "ms": ms, "plain_ms": plain_ms,
-            "library_ms": library_ms, "flops": flops, **_bound(flops, nbytes)}
+            "library_ms": library_ms, "flops": flops, **_bound(flops, nbytes), **graph}
 
 
 def _attic_norm_cases(shape, dtype, gen, dev, timed: bool = True) -> tuple[dict, dict]:
@@ -1343,7 +1377,9 @@ def kernel_lines(measured, path_counts):
     ``pair_library_ms``: ``F.instance_norm`` + ``F.leaky_relu``), and the
     lines of the three stride-1 kernels (v2m, v2, v1) and of the stride-1
     weight gradient the time of their element-load instance over the same
-    shapes (``element_ms``)."""
+    shapes (``element_ms``); the v3 line carries its kernel's and its
+    library call's CUDA-graph times over the same shapes (``graph_ms``,
+    ``graph_library_ms``)."""
     replaces = {
         "conv3x3_stats": "runet_tpu/kernels/fused_block.py:639",
         "conv3x3_s2_stats": "runet_tpu/kernels/strided_conv.py:80",
@@ -1381,7 +1417,7 @@ def kernel_lines(measured, path_counts):
             "library_ms": (None if any(c["library_ms"] is None for c in cs)
                            else sum(c["library_ms"] for c in cs)),
             **{k: sum(c[k] for c in cs) for k in ("pair_ms", "pair_plain_ms", "pair_library_ms",
-                                             "element_ms")
+                                             "element_ms", "graph_ms", "graph_library_ms")
                if all(k in c for c in cs)},
             "shapes_timed": len(cs),
             "shapes_by_path": {p: sum(c["path"] == p for c in every) for p in paths},

@@ -3,10 +3,12 @@ levels' channels-innermost conv).
 
 Counterpart of ``runet_tpu/kernels/attic/conv_v3_deep.py``:
 ``csrc/conv3x3_ndhwc_stats.cu`` replaces the Pallas kernel ``_v3_kernel``.
-It is the implicit GEMM of ``conv3x3_ndhwc.cu`` (the attic conv) with the
-moment epilogue of the production kernels: the sums are of the output
-ROUNDED to bf16, over valid voxels, from per-block partials reduced in a
-fixed order. Bound by tensor-core throughput on the H100.
+It computes the y of ``conv3x3_ndhwc.cu`` (the attic conv) bit for bit, in
+tiles that W selects (``v3_tile``), staged one kd plane at a time through a
+two-stage ``cp.async`` ring, with the moment epilogue of the production
+kernels: the sums are of the output ROUNDED to bf16, over valid voxels,
+from per-block partials reduced in a fixed order. Bound by tensor-core
+throughput on the H100.
 
 The TPU kernel's flattened, filler-padded slab and its ``TD`` and ``BM``
 tiling existed for Mosaic; the port takes any D, H, W, C and Cout (no
@@ -25,7 +27,20 @@ SOURCE = "conv3x3_ndhwc_stats"
 # Kernel launches, one per launch on CUDA.
 launches = 0
 
-__all__ = ["conv3x3_v3", "conv3x3_v3_plain", "reference_conv3x3_ndhwc"]
+__all__ = ["conv3x3_v3", "conv3x3_v3_plain", "reference_conv3x3_ndhwc", "v3_nblk", "v3_tile"]
+
+
+def v3_tile(W: int) -> tuple[int, int, int]:
+    """(rows, columns, output channels) of the CUDA kernel's block tile at
+    width W: 8 x 32 x 64 where W > 16, 16 x 16 x 32 where W <= 16."""
+    return (8, 32, 64) if W > 16 else (16, 16, 32)
+
+
+def v3_nblk(D: int, H: int, W: int) -> int:
+    """The kernel's moment partials per (sample, channel) for a (D, H, W)
+    volume: one per block of the tile that W selects."""
+    th, tw, _ = v3_tile(W)
+    return D * -(-H // th) * -(-W // tw)
 
 
 def _sums(y: torch.Tensor):

@@ -1,6 +1,6 @@
 // Shared pieces of the 3x3x3 conv kernels (conv3x3_stats.cu,
 // conv3x3_stats_v2.cu, conv3x3_stats_v1.cu, conv3x3_s2_stats.cu, the NDHWC
-// kernels of conv3x3_ndhwc.cuh, and the dw kernels through
+// kernels of conv3x3_ndhwc{,_stats}.cuh, and the dw kernels through
 // conv3x3_dw_common.cuh): the 16-byte chunk load along W, the bf16
 // tensor-core MMA and the transposing ldmatrix, the staging of a chunk's
 // weights, the 27-tap MMA loop over a channel-innermost halo, the epilogue

@@ -8,10 +8,9 @@
 //   wt (27, Cout_pad, Cin_pad) bf16, packed as for conv3x3_stats.cu;
 //   y  (B, D, H, W, Cout) bf16.
 // Bound on the H100: tensor-core throughput (2*27*C*Cout FLOP per output
-// voxel). Design and what it does about the bound: conv3x3_ndhwc.cuh (the
-// implicit GEMM that conv3x3_ndhwc_stats.cu shares, without the moment
-// epilogue). The TPU kernel's im2col tile packed K to the MXU's 128; here
-// the 27 taps read the staged halo in place.
+// voxel). Design and what it does about the bound: conv3x3_ndhwc.cuh. The
+// TPU kernel's im2col tile packed K to the MXU's 128; here the 27 taps read
+// the staged halo in place.
 #include "conv3x3_ndhwc.cuh"
 
 extern "C" {
@@ -22,8 +21,7 @@ int conv3x3_ndhwc_cout_tile() { return ndhwc::CO_T; }
 int conv3x3_ndhwc_launch(const void* x, const void* wt, void* y, void* psum, void* psq,
                          void* sums, void* sqs, int B, int D, int C, int H, int W, int Cout,
                          int Cin_pad, int Cout_pad, void* stream) {
-  return ndhwc::launch<false>(x, wt, y, psum, psq, sums, sqs, B, D, C, H, W, Cout, Cin_pad,
-                              Cout_pad, stream);
+  return ndhwc::launch(x, wt, y, B, D, C, H, W, Cout, Cin_pad, Cout_pad, stream);
 }
 
 }  // extern "C"

@@ -1,11 +1,7 @@
 // Stride-1 3x3x3 SAME convolution on channel-innermost (B, D, H, W, C)
-// bf16 activations, f32 accumulation, bf16 output (B, D, H, W, Cout); with
-// STATS also the per-(sample, channel) sums of the bf16-ROUNDED output and
-// of its square. One implicit GEMM, two epilogues:
-//   conv3x3_ndhwc.cu       (STATS = false) replaces
-//       runet_tpu/kernels/attic/conv3d.py::_conv_kernel;
-//   conv3x3_ndhwc_stats.cu (STATS = true)  replaces
-//       runet_tpu/kernels/attic/conv_v3_deep.py::_v3_kernel.
+// bf16 activations, f32 accumulation, bf16 output (B, D, H, W, Cout): the
+// kernel of conv3x3_ndhwc.cu, which replaces
+// runet_tpu/kernels/attic/conv3d.py::_conv_kernel.
 //
 // Design: the GEMM of conv3x3_stats.cu (mma.sync m16n8k16 bf16): M = output
 // voxels (a block owns one output depth d, TH = 8 rows (one warp each) by
@@ -17,13 +13,9 @@
 // device memory, so a position's 16 channels are two 16-byte loads (when C
 // is a multiple of 8 and x is 16-byte aligned; otherwise element loads,
 // zero past C). Positions outside the extent are zero: SAME padding, and
-// any D, H, W, Cin, Cout runs (the TPU kernels' D % TD, H % 8, W % 128 and
+// any D, H, W, Cin, Cout runs (the TPU kernel's D % TD, H % 8, W % 128 and
 // Cin % 8 gates were Mosaic tiling only). No im2col tile is built: the
 // taps read the halo in place.
-//
-// Moments (STATS): each block writes its per-channel partials to a slot of
-// its own and convk::reduce_moments sums the slots in a fixed order, so a
-// run gives the same bits every time (no float atomics).
 //
 // What bounds it on the H100: ~27*Cout*2 FLOP per input byte at the
 // attic's widths (Cout = 32..256), far above the ~295 FLOP/byte ridge, so
@@ -102,16 +94,14 @@ __device__ __forceinline__ void stage_halo(bf16* __restrict__ xs, const bf16* __
 }
 
 // grid: (ceil(H/TH) * ceil(W/TW), D, B * Cout_pad/CO_T).
-template <bool STATS, bool VEC>
+template <bool VEC>
 __global__ void __launch_bounds__(NTHREADS)
 conv3x3_ndhwc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wt,
-                     bf16* __restrict__ y, float* __restrict__ psum, float* __restrict__ psq,
-                     int D, int H, int W, int C, int Cout, int Cin_pad, int Cout_pad,
-                     int n_wtiles, int n_cotiles, int64_t nblk) {
+                     bf16* __restrict__ y, int D, int H, int W, int C, int Cout, int Cin_pad,
+                     int Cout_pad, int n_wtiles, int n_cotiles) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* xs = reinterpret_cast<bf16*>(smem_raw);
   bf16* ws = xs + SMEM_X;
-  __shared__ float red_s[STATS ? TH : 1][CO_T], red_q[STATS ? TH : 1][CO_T];
 
   const int ht = blockIdx.x / n_wtiles, wtile = blockIdx.x % n_wtiles;
   const int d = blockIdx.y;
@@ -139,26 +129,19 @@ conv3x3_ndhwc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wt,
   }
 
   const int h = h0 + warp;
-  const int64_t blk = (int64_t)d * gridDim.x + blockIdx.x;
   bf16* ybase = y + ((int64_t)b * D + d) * H * W * Cout;
-  convk::store_tile<MT, NT, TH, STATS>(
-      acc, ybase, 1, (int64_t)W * Cout, Cout, W, h, h < H, w0, co0, Cout, red_s, red_q, psum,
-      psq, STATS ? ((int64_t)b * Cout_pad + co0) * nblk + blk : 0, nblk);
+  convk::store_tile<MT, NT, TH, false>(acc, ybase, 1, (int64_t)W * Cout, Cout, W, h, h < H, w0,
+                                       co0, Cout, nullptr, nullptr, nullptr, nullptr, 0, 0);
 }
 
-inline long long nblk(int D, int H, int W) {
-  return (long long)D * ((H + TH - 1) / TH) * ((W + TW - 1) / TW);
-}
-
-// Launch the conv kernel (and with STATS the moment reduction) on `stream`.
-// psum/psq: (B, Cout_pad, nblk) f32 scratch; sums/sqs: (B, Cout) f32 (all
-// four unused, and may be null, without STATS). Returns cudaGetLastError().
-template <bool STATS>
-int launch(const void* x, const void* wt, void* y, void* psum, void* psq, void* sums, void* sqs,
-           int B, int D, int C, int H, int W, int Cout, int Cin_pad, int Cout_pad,
-           void* stream) {
+// Launch the conv kernel on `stream`. Returns cudaGetLastError(). Internal
+// linkage: a static local of an inline function with external linkage is
+// one object per process (STB_GNU_UNIQUE), shared by every library built
+// from this header.
+static int launch(const void* x, const void* wt, void* y, int B, int D, int C, int H, int W,
+                  int Cout, int Cin_pad, int Cout_pad, void* stream) {
   const bool vec = C % 8 == 0 && (reinterpret_cast<uintptr_t>(x) & 15) == 0;
-  auto kern = vec ? conv3x3_ndhwc_kernel<STATS, true> : conv3x3_ndhwc_kernel<STATS, false>;
+  auto kern = vec ? conv3x3_ndhwc_kernel<true> : conv3x3_ndhwc_kernel<false>;
   static bool attr_done[2] = {false, false};
   if (!attr_done[vec]) {
     cudaError_t e =
@@ -168,17 +151,10 @@ int launch(const void* x, const void* wt, void* y, void* psum, void* psq, void* 
   }
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   const int nh = (H + TH - 1) / TH, nw = (W + TW - 1) / TW, nco = Cout_pad / CO_T;
-  const int64_t nb = nblk(D, H, W);
   dim3 grid(nh * nw, D, B * nco);
-  kern<<<grid, NTHREADS, SMEM_BYTES, st>>>(
-      static_cast<const bf16*>(x), static_cast<const bf16*>(wt), static_cast<bf16*>(y),
-      static_cast<float*>(psum), static_cast<float*>(psq), D, H, W, C, Cout, Cin_pad, Cout_pad,
-      nw, nco, nb);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess || !STATS) return (int)e;
-  convk::reduce_moments<<<dim3(Cout, B), 256, 0, st>>>(
-      static_cast<const float*>(psum), static_cast<const float*>(psq),
-      static_cast<float*>(sums), static_cast<float*>(sqs), nb, Cout, Cout_pad);
+  kern<<<grid, NTHREADS, SMEM_BYTES, st>>>(static_cast<const bf16*>(x),
+                                           static_cast<const bf16*>(wt), static_cast<bf16*>(y),
+                                           D, H, W, C, Cout, Cin_pad, Cout_pad, nw, nco);
   return (int)cudaGetLastError();
 }
 

@@ -173,17 +173,31 @@ def test_attic_conv_gate_matches_jax_and_cpu_is_not_applicable():
 # ---- conv_v3_deep ----
 
 
-@pytest.mark.parametrize("shape,td", [((8, 6, 10, 16), 4), ((4, 5, 7, 32), 2)])
-def test_v3_plain_matches_pallas(shape, td):
+@pytest.mark.parametrize("shape,td,cout", [
+    ((8, 6, 10, 16), 4, 16),
+    ((4, 5, 7, 32), 2, 32),
+    ((2, 13, 16, 16), 2, 16),   # W = 16: the widest volume of the 16 x 16 tile; ragged H
+    ((2, 5, 17, 16), 2, 40),    # W = 17: the 8 x 32 tile; Cout != C
+])
+def test_v3_plain_matches_pallas(shape, td, cout):
     rng = np.random.default_rng(2)
     D, H, W, C = shape
     x = rng.normal(size=shape).astype(np.float32)
-    w = (rng.normal(size=(3, 3, 3, C, C)) * 0.1).astype(np.float32)
+    w = (rng.normal(size=(3, 3, 3, C, cout)) * 0.1).astype(np.float32)
     yj, sj, qj = jax_conv3x3_v3(jnp.asarray(x), jnp.asarray(w), interpret=True, TD=td, BM=64)
     y, s, q = conv_v3_deep.conv3x3_v3(torch.from_numpy(x), torch.from_numpy(w))
     np.testing.assert_allclose(y.numpy(), _np(yj), atol=2e-5)
     np.testing.assert_allclose(s.numpy(), _np(sj), rtol=1e-4)
     np.testing.assert_allclose(q.numpy(), _np(qj), rtol=1e-4)
+
+
+def test_v3_tile_table():
+    """The CUDA kernel's block tile switches at W = 16, and its moment
+    partials are one per block of that tile."""
+    assert [conv_v3_deep.v3_tile(w) for w in (8, 16, 17, 32, 128)] == [
+        (16, 16, 32), (16, 16, 32), (8, 32, 64), (8, 32, 64), (8, 32, 64)]
+    assert [conv_v3_deep.v3_nblk(4, 13, w) for w in (8, 16, 17, 32, 128)] == [4, 4, 8, 8, 32]
+    assert conv_v3_deep.v3_nblk(32, 32, 32) == 128 and conv_v3_deep.v3_nblk(16, 16, 16) == 16
 
 
 def test_v3_bf16_sums_are_of_the_rounded_output():

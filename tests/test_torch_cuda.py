@@ -692,11 +692,25 @@ def test_attic_conv_kernel_reads_an_unaligned_view(cuda):
     assert_y_close(conv3d.conv3x3x3_same(xu, w), conv3d.conv3x3x3_same_plain(x, w))
 
 
-@pytest.mark.parametrize("D,H,W,C,Cout", [
+# The v3 kernel's tile follows W: 16 rows x 16 columns x 32 channels where
+# W <= 16, 8 x 32 x 64 where W > 16; each (16-channel chunk, kd plane) phase
+# is staged through a two-stage cp.async ring (16-byte copies where C % 8 ==
+# 0 and x is 16-byte aligned, element loads otherwise).
+_V3_SHAPES = [
     (6, 9, 11, 24, 40),       # odd extents, ragged tiles
     (8, 16, 16, 128, 128),    # a deep level (fine_l2's widths)
     (4, 5, 7, 256, 64),       # fine_l3's input width
-])
+    (4, 12, 16, 64, 64),      # W = 16: the widest volume of the 16 x 16 tile
+    (4, 12, 17, 64, 64),      # W = 17: the narrowest of the 8 x 32 tile
+    (5, 13, 16, 128, 96),     # H = 13: a ragged 16-row tile
+    (3, 9, 33, 40, 80),       # Cout 80: Cout_pad 96 half fills the second 64-channel
+                              # tile; W = 33: a one-column second tile; Cin % 16 = 8
+    (32, 32, 32, 128, 128),   # the kernel bench's fine_l2 (B = 1)
+    (16, 16, 16, 256, 256),   # the kernel bench's fine_l3 (B = 1)
+]
+
+
+@pytest.mark.parametrize("D,H,W,C,Cout", _V3_SHAPES)
 def test_attic_v3_kernel_matches_plain(cuda, D, H, W, C, Cout):
     from runet_tpu_torch.kernels.attic import conv_v3_deep
 
@@ -706,6 +720,122 @@ def test_attic_v3_kernel_matches_plain(cuda, D, H, W, C, Cout):
     torch.cuda.synchronize()
     n = D * H * W
     assert_conv_stats_close((y, s / n, q / n), (yr, sr / n, qr / n))
+
+
+@pytest.mark.parametrize("D,H,W,C,Cout", _V3_SHAPES)
+def test_attic_v3_element_loads_equal_vector_loads(cuda, D, H, W, C, Cout):
+    """x one element past a 16-byte boundary takes the element-load
+    instance, which fills the same shared cells: y, sums and sqs keep their
+    bits."""
+    from runet_tpu_torch.kernels.attic import conv_v3_deep
+
+    x, w = _ndhwc_inputs((D, H, W, C), Cout, 29, cuda)
+    packed = pack_weight(w)
+    xo = _at_odd_offset(x)
+    got, want = conv_v3_deep.conv3x3_v3(xo, w, packed), conv_v3_deep.conv3x3_v3(x, w, packed)
+    for u, v in zip(got, want):
+        assert torch.equal(u, v)
+
+
+@pytest.mark.parametrize("D,H,W,C,Cout", _V3_SHAPES)
+def test_attic_v3_y_equals_the_attic_conv_bit_for_bit(cuda, D, H, W, C, Cout):
+    """Every accumulator takes its k-steps in the attic conv's order (16-channel
+    chunks, then kd, kh, kw), so the two kernels' y are equal; the v3 sums
+    are those of its own rounded y, to 1e-5 of Σ|y| and of Σy² per channel."""
+    from runet_tpu_torch.kernels.attic import conv3d, conv_v3_deep
+
+    x, w = _ndhwc_inputs((D, H, W, C), Cout, 30, cuda)
+    packed = pack_weight(w)
+    y, s, q = conv_v3_deep.conv3x3_v3(x, w, packed)
+    assert torch.equal(y, conv3d.conv3x3x3_same(x, w, packed))
+    yf = y.float()
+    assert ((s - yf.sum((0, 1, 2))).abs() <= 1e-5 * yf.abs().sum((0, 1, 2))).all()
+    qr = (yf * yf).sum((0, 1, 2))
+    assert ((q - qr).abs() <= 1e-5 * qr).all()
+
+
+def test_attic_v3_is_deterministic_across_tile_seams(cuda):
+    """Several row, column and 64- or 32-channel tiles of both geometries:
+    two runs give the same bits."""
+    from runet_tpu_torch.kernels.attic import conv_v3_deep
+
+    for shape, cout in (((3, 20, 70, 32), 160), ((3, 35, 12, 48), 96)):
+        x, w = _ndhwc_inputs(shape, cout, 31, cuda)
+        a, b = conv_v3_deep.conv3x3_v3(x, w), conv_v3_deep.conv3x3_v3(x, w)
+        assert all(torch.equal(u, v) for u, v in zip(a, b))
+
+
+def test_v3_nblk_matches_the_library(cuda):
+    """The Python tile table gives the library's count of moment partials
+    (``launch_conv_stats`` sizes the scratch from the library's)."""
+    from runet_tpu_torch.kernels.attic import conv_v3_deep
+    from runet_tpu_torch.kernels.conv_common import _CONV_STATS_API, _library
+
+    lib = _library(conv_v3_deep.SOURCE, _CONV_STATS_API)
+    nblk = getattr(lib, f"{conv_v3_deep.SOURCE}_nblk")
+    for D, H, W in ((4, 13, 8), (4, 13, 16), (4, 13, 17), (4, 13, 32), (4, 13, 128),
+                    (32, 32, 32), (16, 16, 16), (1, 1, 1), (3, 35, 70)):
+        assert nblk(D, H, W) == conv_v3_deep.v3_nblk(D, H, W), (D, H, W)
+
+
+def _v3_digests(shape, device):
+    """sha256 of y's bytes, and of sums' then sqs' bytes, from numpy inputs
+    (seed 28) at (D, H, W, C, Cout)."""
+    import hashlib
+
+    from runet_tpu_torch.kernels.attic import conv_v3_deep
+
+    D, H, W, C, Cout = shape
+    x, w = _ndhwc_inputs((D, H, W, C), Cout, 28, device)
+    y, s, q = conv_v3_deep.conv3x3_v3(x, w)
+    y_bytes = y.cpu().view(torch.int16).numpy().tobytes()
+    m_bytes = s.cpu().numpy().tobytes() + q.cpu().numpy().tobytes()
+    return hashlib.sha256(y_bytes).hexdigest(), hashlib.sha256(m_bytes).hexdigest()
+
+
+# Digests (``_v3_digests``) recorded from the kernel that staged 32-column x
+# 32-channel tiles synchronously, before the tiles followed W and the kd
+# planes went through a cp.async ring, on an NVIDIA H100 80GB HBM3: y at
+# every shape, the moments where W > 16 (at W <= 16 the 16-row tile folds two
+# rows per warp into each partial, another f32 order).
+_V3_DIGESTS = {
+    (6, 9, 11, 24, 40): (
+        "d76caa23a01727ae5574160d3f22d2976b3daeb2e77c9f7e9bcfc43c2e90c69c",
+        None),
+    (8, 16, 16, 128, 128): (
+        "d8a00d3f0ecd4de060dbf18502dec641a1f17b3c6238300df1393df4d0743ef0",
+        None),
+    (4, 5, 7, 256, 64): (
+        "d19cd4e8702ae1a0cfaf759aa7c902f13fd0fc52ed9a300a20650a77d93f1b4d",
+        None),
+    (4, 12, 16, 64, 64): (
+        "2bf4aafb85f2c305ce25d859cf26a0114408f990b5c984395c62ae50353ceebd",
+        None),
+    (4, 12, 17, 64, 64): (
+        "ad36ccb592feb5b6f077103bab140f6b52bda04f350388461a4a37ce5ccbd7e4",
+        "369cea58173abae35999c6ec9d9221821c363eb22f5320a1d6b4634f9dfd2b50"),
+    (5, 13, 16, 128, 96): (
+        "f0f227d651abf400f1eeb5ccc6cac938bd41a1f18442a9eab0c34ee1d424b1ff",
+        None),
+    (3, 9, 33, 40, 80): (
+        "269dfb7d5a4ce11d89078ee458fff3c3e033506cce13a190ebf46ce58fb3a002",
+        "6826cba1cd9ad866a4faf96684d0826a015e9899f62ecb13c152750b9f174833"),
+    (32, 32, 32, 128, 128): (
+        "d690b2e8e17a6118ed6776c78e561d01f04e8a599e0c9d5915da591b85760e9f",
+        "1a0c791c57e5b5326e504d56a33aad35bfbd1af3adbb59de3545c63aa6b48907"),
+    (16, 16, 16, 256, 256): (
+        "24f8b6579ea3e27be36a650b576c2c2d44e586baced88e768bd5f05dd2ad0c87",
+        None),
+}
+
+
+@pytest.mark.parametrize("shape", _V3_SHAPES)
+def test_conv3x3_v3_keeps_its_recorded_bits(cuda, shape):
+    y_digest, m_digest = _v3_digests(shape, cuda)
+    want_y, want_m = _V3_DIGESTS[shape]
+    assert y_digest == want_y
+    if want_m is not None:
+        assert m_digest == want_m
 
 
 def test_attic_conv_kernels_are_counted_deterministic_and_bf16_only(cuda):

@@ -212,3 +212,27 @@ def test_phase_probe_dw1_exits_nonzero_without_cuda(no_cuda, tmp_path):
     out = tmp_path / "phases.json"
     assert phase_probe.main(["--kernel", "dw1", "--out", str(out)]) != 0
     assert not out.exists()
+
+
+def test_phase_probe_v3_defines_its_mask_and_includes_the_source(tmp_path):
+    from runet_tpu_torch.kernels import build
+    from runet_tpu_torch.utils import phase_probe
+
+    src = tmp_path / "k.cu"
+    text = phase_probe.probe_source(src, 6, "V3_PHASES")
+    assert text.splitlines() == ["#define V3_PHASES 6", f'#include "{src.resolve()}"']
+    v3 = phase_probe.KERNELS["v3"]
+    assert v3.macro == "V3_PHASES" and v3.source.name == "conv3x3_ndhwc_stats.cu"
+    assert v3.source.exists() and '#include "conv3x3_ndhwc_stats.cuh"' in v3.source.read_text()
+    assert "#ifndef V3_PHASES" in (build.CSRC / "conv3x3_ndhwc_stats.cuh").read_text()
+    assert v3.without == {"halo": 6, "weights": 5, "mma": 3}
+    assert v3.geometries == {"fine_l2": (1, 32, 128, 128), "fine_l3": (1, 16, 256, 256)}
+    assert set(v3.api) == {"launch", "nblk"}
+
+
+def test_phase_probe_v3_exits_nonzero_without_cuda(no_cuda, tmp_path):
+    from runet_tpu_torch.utils import phase_probe
+
+    out = tmp_path / "phases.json"
+    assert phase_probe.main(["--kernel", "v3", "--out", str(out)]) != 0
+    assert not out.exists()
