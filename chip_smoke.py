@@ -103,7 +103,11 @@ Phases (any failure exits non-zero; nothing is caught and printed over):
    at (6, 9, 11, 24)→40, W = 16 and 17 (4, 12, W, 64)→64, a ragged
    16-row tile (5, 13, 16, 128)→96 and Cout 80 (3, 9, 33, 40)→80, the instance-norm
    stats and apply kernels (alone and as the pair) at (1, 8, 8, 8, 320)
-   bf16 and at (1, 3, 5, 7, 20) bf16 and f32. Then the gradient of the
+   bf16 and at (1, 3, 5, 7, 20) bf16 and f32; row 1 (v2m) at one shape
+   per tile, instance and edge (``V2M_TILE_CASES``: 8 x 32 x 32 with and
+   without 16-byte copies and at Cout_pad 96, 8 x 32 x 64 at W = 32 and 17,
+   16 x 16 x 32 at H = 16, 12 and 8 and W = 12, one voxel), x also at an
+   odd offset, bits equal. Then the gradient of the
    attic conv's autograd Function (dx through the kernel, dw by the
    framework in f32) at two small shapes against autograd through
    ``F.conv3d`` in true f32.
@@ -1078,6 +1082,14 @@ ATTIC_CONV_CASES = [("odd", (7, 13, 29, 5), 11)]
 ATTIC_V3_CASES = [("odd", (6, 9, 11, 24), 40), ("W 16", (4, 12, 16, 64), 64),
                   ("W 17", (4, 12, 17, 64), 64), ("ragged H", (5, 13, 16, 128), 96),
                   ("Cout 80", (3, 9, 33, 40), 80)]
+# Row 1 (v2m) at one shape per tile, instance and edge, (tag, (D, C, H, W),
+# Cout) at B = 1: its tile follows W and Cout_pad (8 x 32 x 64, 8 x 32 x 32,
+# 16 x 16 x 32), x takes cp.async copies where W % 8 == 0.
+V2M_TILE_CASES = [("Wide32", (4, 24, 13, 128), 32), ("Wide32 Cout_pad 96", (3, 40, 9, 33), 80),
+                  ("Wide64", (4, 128, 12, 32), 128), ("Wide64 W 17", (4, 64, 13, 17), 64),
+                  ("Narrow", (2, 256, 16, 16), 256), ("Narrow H 12", (4, 64, 12, 16), 64),
+                  ("Narrow H 8", (3, 320, 8, 8), 320), ("Narrow W 12", (5, 128, 13, 12), 96),
+                  ("one voxel", (1, 16, 1, 1), 32)]
 ATTIC_NORM_CASES = [("deep", (1, 8, 8, 8, 320), torch.bfloat16),
                     ("odd", (1, 3, 5, 7, 20), torch.bfloat16),
                     ("odd f32", (1, 3, 5, 7, 20), torch.float32)]
@@ -1255,11 +1267,37 @@ def _attic_grad_check(shape, cout, gen, dev) -> tuple[float, float]:
     return _check_y(xk.grad, xr.grad), _check_y(wk.grad, wr.grad)
 
 
+def _v2m_tile_case(x_shape, cout, gen, dev) -> dict:
+    """Row 1 against its plain version on random inputs, untimed; x at an
+    odd offset (the element-load instance) must give the aligned run's y,
+    sums and sqs bit for bit."""
+    from runet_tpu_torch.kernels import fused_block
+    from runet_tpu_torch.kernels.conv_common import pack_weight
+
+    C = x_shape[2]
+    x = torch.randn(x_shape, generator=gen, device=dev).to(torch.bfloat16)
+    k = (torch.randn((3, 3, 3, C, cout), generator=gen, device=dev) / math.sqrt(27 * C)
+         ).to(torch.bfloat16)
+    packed = pack_weight(k)
+    with torch.no_grad():
+        max_err, rel = _check(fused_block.conv_in_stats_dchw_batch(x, k, packed),
+                              fused_block.conv3x3_stats_plain(x, k))
+        want = fused_block._conv3x3_sums(x, k, packed)
+        got = fused_block._conv3x3_sums(_at_odd_offset(x), k, packed)
+    for name, u, v in zip(("y", "sums", "sqs"), got, want):
+        if not torch.equal(u, v):
+            raise AssertionError(f"v2m at x {tuple(x_shape)}->{cout}: {name} at an odd offset "
+                                 f"differs from the aligned run")
+    return {"max_abs_err": max_err, "rel_err": rel}
+
+
 def phase_attic(dev) -> dict:
     """The four attic kernels against their plain versions at the shapes
     the kernel bench does not launch (odd shapes, the deepest level's norm,
-    f32), untimed; the attic conv's gradient. Returns {kernel: [case, ...]}
-    in ``phase_kernels``' form, without times."""
+    f32), untimed; row 1 at one shape per tile, instance and edge
+    (``V2M_TILE_CASES``), untimed; the attic conv's gradient. Returns
+    {kernel: [case, ...]} in ``phase_kernels``' form, without times."""
+    from runet_tpu_torch.kernels import fused_block
     from runet_tpu_torch.kernels.attic import conv3d, conv_v3_deep, fused_norm
 
     gen = torch.Generator(device=dev).manual_seed(4)
@@ -1280,6 +1318,13 @@ def phase_attic(dev) -> dict:
             out[name].append({"path": "attic", "x_shape": list(shape), "cout": shape[-1],
                               "launches": 0, "reused": False, "tag": tag,
                               "dtype": str(dtype).removeprefix("torch."), **case})
+    for tag, (D, C, H, W), cout in V2M_TILE_CASES:
+        case = _v2m_tile_case((1, D, C, H, W), cout, gen, dev)
+        out.setdefault(fused_block.SOURCE, []).append(
+            {"path": "tiles", "x_shape": [1, D, C, H, W], "cout": cout, "launches": 0,
+             "reused": False, "tag": tag, **case})
+        log(f"[tiles] {fused_block.SOURCE} {tag} x{(1, D, C, H, W)}->{cout}: err "
+            f"{case['max_abs_err']:.3g} (rel {case['rel_err']:.2e}), odd offset bit-equal")
     for shape, cout in (((5, 7, 9, 12), 10), ((16, 24, 40, 32), 48)):
         dx_err, dw_err = _attic_grad_check(shape, cout, gen, dev)
         log(f"[attic] attic conv Function gradient at x{shape}->{cout} vs f32 autograd "
@@ -1377,7 +1422,8 @@ def kernel_lines(measured, path_counts):
     ``pair_library_ms``: ``F.instance_norm`` + ``F.leaky_relu``), and the
     lines of the three stride-1 kernels (v2m, v2, v1) and of the stride-1
     weight gradient the time of their element-load instance over the same
-    shapes (``element_ms``); the v3 line carries its kernel's and its
+    shapes (``element_ms``); the v2m line its main-path sums by shape
+    class (``ms_by_class``); the v3 line carries its kernel's and its
     library call's CUDA-graph times over the same shapes (``graph_ms``,
     ``graph_library_ms``)."""
     replaces = {
@@ -1425,8 +1471,25 @@ def kernel_lines(measured, path_counts):
                                  for p in sorted({c["path"] for c in cs})},
             "path_ms": {p: sum(c["ms"] * c["launches"] for c in every if c["path"] == p)
                         for p in launched},
+            **({"ms_by_class": _v2m_classes([c for c in cs if c["path"] != "kernel_bench"])}
+               if name == "conv3x3_stats" else {}),
         })
     return kernels
+
+
+def _v2m_classes(cases) -> dict:
+    """Row 1's timed main-path shapes in the classes its tiles were
+    redesigned for: deep (Cin >= 128, W < 128), narrow (W <= 16; on the main
+    paths all are also deep) and the rest (neither); shapes, ms, cuDNN +
+    sums ms and bound ms of each."""
+    classes = {"deep": lambda C, W: C >= 128 and W < 128, "narrow": lambda C, W: W <= 16,
+               "rest": lambda C, W: not (C >= 128 and W < 128) and W > 16}
+    out = {}
+    for tag, member in classes.items():
+        cs = [c for c in cases if member(c["x_shape"][2], c["x_shape"][4])]
+        out[tag] = {"shapes": len(cs), **{k: sum(c[k] for c in cs)
+                                          for k in ("ms", "library_ms", "bound_ms")}}
+    return out
 
 
 def main() -> int:

@@ -1,12 +1,14 @@
-// Shared pieces of the 3x3x3 conv kernels (conv3x3_stats.cu,
-// conv3x3_stats_v2.cu, conv3x3_stats_v1.cu, conv3x3_s2_stats.cu, the NDHWC
-// kernels of conv3x3_ndhwc{,_stats}.cuh, and the dw kernels through
-// conv3x3_dw_common.cuh): the 16-byte chunk load along W, the bf16
-// tensor-core MMA and the transposing ldmatrix, the staging of a chunk's
-// weights, the 27-tap MMA loop over a channel-innermost halo, the epilogue
-// that rounds the output to bf16 and folds it into per-block moment
-// partials, and the second pass that reduces those partials (also the
-// instance-norm statistics' second pass).
+// Shared pieces of the 3x3x3 conv kernels (conv3x3_stats{,_v2,_v1}.cu,
+// conv3x3_s2_stats.cu, the NDHWC kernels of conv3x3_ndhwc{,_stats}.cuh, and
+// the dw kernels through conv3x3_dw_common.cuh): the 16-byte chunk load
+// along W, cp.async, the bf16 tensor-core MMA and the transposing ldmatrix,
+// the staging of a chunk's weights, the 27-tap MMA loop over a
+// channel-innermost halo; for the kernels that stage one (chunk, kd plane)
+// phase at a time (conv3x3_stats.cuh, conv3x3_ndhwc_stats.cuh) their tile,
+// the copies of a plane's 9 taps of weights and the 9-tap MMA loop; the
+// epilogue that rounds the output to bf16 and folds it into per-block
+// moment partials, and the second pass that reduces those partials (also
+// the instance-norm statistics' second pass).
 //
 // Moments are deterministic: each block writes its per-channel partial sums
 // to a scratch slot of its own (fixed-order in-block reduction: per-thread
@@ -121,6 +123,88 @@ __device__ __forceinline__ void stage_weights(bf16* __restrict__ ws, const bf16*
     const uint4* src = reinterpret_cast<const uint4*>(
         wt + ((int64_t)tap * Cout_pad + co0 + co) * Cin_pad + c0 + half * 8);
     *reinterpret_cast<uint4*>(ws + (tap * CO_T + co) * WS + half * 8) = *src;
+  }
+}
+
+// The tile of a kernel that stages one (16-channel chunk, kd plane) phase at
+// a time (conv3x3_stats.cuh, conv3x3_ndhwc_stats.cuh): a block of NWARPS
+// warps owns TH output rows x TW columns x CO_T output channels; warp w
+// computes rows w * RPW .. + RPW - 1, each as MPR m16 tiles of 16 columns,
+// by NT n8 tiles. The staged halo plane is (TH + 2) x XC positions.
+template <int TH_, int TW_, int CO_T_, int NWARPS_>
+struct Tile9 {
+  static constexpr int TH = TH_, TW = TW_, CO_T = CO_T_, NWARPS = NWARPS_;
+  static constexpr int MPR = TW / 16;         // m16 tiles per output row
+  static constexpr int RPW = TH / NWARPS;     // output rows per warp
+  static constexpr int MT = MPR * RPW;        // m16 tiles per warp
+  static constexpr int NT = CO_T / 8;         // n8 tiles per warp
+  static constexpr int XC = TW + 2;           // halo columns
+  static constexpr int NPOS = (TH + 2) * XC;  // positions of one halo plane
+  static_assert(TW % 16 == 0 && TH % NWARPS == 0 && MT == 2, "two m16 tiles a warp");
+};
+
+// Stage the 9 (kh, kw) taps of plane kd by cp.async (commit not included):
+// ws[((kh * 3 + kw) * CO_T + co) * WS + ci] = wt[(kd * 3 + kh) * 3 + kw,
+// co0 + co, c0 + ci] for 16 input channels, zero past Cout_pad. A thread's
+// copies share their channel and 16-byte half and step over the taps, so
+// its addresses are one base and one stride.
+template <int NTHREADS, int CO_T, int WS>
+__device__ __forceinline__ void stage_weights_kd(bf16* __restrict__ ws,
+                                                 const bf16* __restrict__ wt, int Cout_pad,
+                                                 int Cin_pad, int co0, int c0, int kd) {
+  constexpr int TSTEP = NTHREADS / (2 * CO_T);  // taps between a thread's copies
+  static_assert(NTHREADS % (2 * CO_T) == 0, "whole taps per step");
+  const int half = threadIdx.x & 1, co = (threadIdx.x >> 1) % CO_T;
+  const int tap0 = (threadIdx.x >> 1) / CO_T;
+  const bool ok = co0 + co < Cout_pad;
+  const bf16* src =
+      ok ? wt + ((int64_t)(kd * 9 + tap0) * Cout_pad + co0 + co) * Cin_pad + c0 + half * 8 : wt;
+  const int64_t sstep = ok ? (int64_t)TSTEP * Cout_pad * Cin_pad : 0;
+  bf16* dst = ws + (tap0 * CO_T + co) * WS + half * 8;
+#pragma unroll
+  for (int tap = tap0; tap < 9; tap += TSTEP) {
+    cp_async16_zfill(dst, src, ok);
+    src += sstep;
+    dst += TSTEP * CO_T * WS;
+  }
+}
+
+// The 9 (kh, kw) taps of one staged phase of a Tile9 T: acc[mt][nt] += A * B,
+// where m16 tile mt of warp `warp` is output row warp * RPW + mt / MPR of the
+// tile, columns (mt % MPR) * 16 + 0..15. xs: the halo plane, channel
+// innermost (position (row, col) at (row * XC + col) * XS); ws: the taps as
+// stage_weights_kd lays them out. A tap's A fragments are held and its B
+// fragments loaded one n8 tile at a time. With XS = WS = 24 both fragment
+// loads are free of bank conflicts. Each accumulator takes one mma per tap,
+// so phases run in the order (c0, kd) give mma_27taps' k-step order.
+template <class T, int XS, int WS>
+__device__ __forceinline__ void mma_9taps(float (&acc)[T::MT][T::NT][4],
+                                          const bf16* __restrict__ xs,
+                                          const bf16* __restrict__ ws, int warp, int g, int t) {
+#pragma unroll
+  for (int kh = 0; kh < 3; ++kh) {
+#pragma unroll
+    for (int kw = 0; kw < 3; ++kw) {
+      uint32_t a[T::MT][4];
+#pragma unroll
+      for (int mt = 0; mt < T::MT; ++mt) {
+        // A[m][k] = input at halo row row + kh, column col + m + kw, channel k.
+        const int row = warp * T::RPW + mt / T::MPR, col = (mt % T::MPR) * 16;
+        const bf16* p = xs + ((row + kh) * T::XC + col + g + kw) * XS + 2 * t;
+        a[mt][0] = ld32(p);
+        a[mt][1] = ld32(p + 8 * XS);
+        a[mt][2] = ld32(p + 8);
+        a[mt][3] = ld32(p + 8 * XS + 8);
+      }
+#pragma unroll
+      for (int nt = 0; nt < T::NT; ++nt) {
+        // B[k][n] = weight of tap (kh, kw), output channel n, input channel k.
+        const bf16* p = ws + ((kh * 3 + kw) * T::CO_T + nt * 8 + g) * WS + 2 * t;
+        const uint32_t b[2] = {ld32(p), ld32(p + 8)};
+#pragma unroll
+        for (int mt = 0; mt < T::MT; ++mt) mma_16816(acc[mt][nt], a[mt], b);
+      }
+    }
   }
 }
 

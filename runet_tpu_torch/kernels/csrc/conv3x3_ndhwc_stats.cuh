@@ -61,19 +61,12 @@ constexpr int WS = 24;        // shared stride (bf16) of one (tap, cout) weight 
 constexpr int COUT_PAD = 32;  // the packed weights' Cout multiple (conv_common.COUT_TILE)
 
 template <int TH_, int TW_, int CO_T_>
-struct Tile {
-  static constexpr int TH = TH_, TW = TW_, CO_T = CO_T_;
-  static constexpr int MPR = TW / 16;            // m16 tiles per output row
-  static constexpr int RPW = TH / NWARPS;        // output rows per warp
-  static constexpr int MT = MPR * RPW;           // m16 tiles per warp
-  static constexpr int NT = CO_T / 8;            // n8 tiles per warp
-  static constexpr int XC = TW + 2;              // halo columns
-  static constexpr int NPOS = (TH + 2) * XC;     // positions of one halo plane
-  static constexpr int SMEM_X = NPOS * XS;       // bf16 of a stage's halo
-  static constexpr int SMEM_W = 9 * CO_T * WS;   // bf16 of a stage's weights
-  static constexpr int STAGE = SMEM_X + SMEM_W;  // bf16 per stage
+struct Tile : convk::Tile9<TH_, TW_, CO_T_, NWARPS> {
+  using G = convk::Tile9<TH_, TW_, CO_T_, NWARPS>;
+  static constexpr int SMEM_X = G::NPOS * XS;        // bf16 of a stage's halo
+  static constexpr int SMEM_W = 9 * G::CO_T * WS;    // bf16 of a stage's weights
+  static constexpr int STAGE = SMEM_X + SMEM_W;      // bf16 per stage
   static constexpr int SMEM_BYTES = 2 * STAGE * 2;
-  static_assert(TW % 16 == 0 && TH % NWARPS == 0 && MT == 2, "two m16 tiles a warp");
   static_assert((SMEM_X * 2) % 16 == 0 && (STAGE * 2) % 16 == 0, "16-byte copy targets");
 };
 using Wide = Tile<8, 32, 64>;    // W > 16
@@ -99,58 +92,6 @@ __device__ __forceinline__ void stage_plane(bf16* __restrict__ xs, const bf16* _
     else
       *reinterpret_cast<uint4*>(dst) =
           ok ? convk::ld_chunk<false>(src, cb, C) : make_uint4(0u, 0u, 0u, 0u);
-  }
-}
-
-// Stage the 9 taps of plane kd: ws[((kh * 3 + kw) * CO_T + co) * WS + ci] =
-// wt[(kd * 3 + kh) * 3 + kw, co0 + co, c0 + ci], zero past Cout_pad.
-template <class T>
-__device__ __forceinline__ void stage_weights(bf16* __restrict__ ws, const bf16* __restrict__ wt,
-                                              int Cout_pad, int Cin_pad, int co0, int c0,
-                                              int kd) {
-  for (int e = threadIdx.x; e < 2 * 9 * T::CO_T; e += NTHREADS) {
-    const int half = e & 1, r = e >> 1;
-    const int co = r % T::CO_T, tap = r / T::CO_T;
-    const bool ok = co0 + co < Cout_pad;
-    const bf16* src =
-        ok ? wt + ((int64_t)(kd * 9 + tap) * Cout_pad + co0 + co) * Cin_pad + c0 + half * 8 : wt;
-    convk::cp_async16_zfill(ws + r * WS + half * 8, src, ok);
-  }
-}
-
-// The 9 (kh, kw) taps of one staged phase: acc[mt][nt] += A * B, where m16
-// tile mt of warp `warp` is output row warp * RPW + mt / MPR of the tile,
-// columns (mt % MPR) * 16 + 0..15. A tap's A fragments are held and its B
-// fragments loaded one n8 tile at a time. With XS = WS = 24 both fragment
-// loads are free of bank conflicts.
-template <class T>
-__device__ __forceinline__ void mma_9taps(float (&acc)[T::MT][T::NT][4],
-                                          const bf16* __restrict__ xs,
-                                          const bf16* __restrict__ ws, int warp, int g, int t) {
-#pragma unroll
-  for (int kh = 0; kh < 3; ++kh) {
-#pragma unroll
-    for (int kw = 0; kw < 3; ++kw) {
-      uint32_t a[T::MT][4];
-#pragma unroll
-      for (int mt = 0; mt < T::MT; ++mt) {
-        // A[m][k] = input at halo row row + kh, column col + m + kw, channel k.
-        const int row = warp * T::RPW + mt / T::MPR, col = (mt % T::MPR) * 16;
-        const bf16* p = xs + ((row + kh) * T::XC + col + g + kw) * XS + 2 * t;
-        a[mt][0] = convk::ld32(p);
-        a[mt][1] = convk::ld32(p + 8 * XS);
-        a[mt][2] = convk::ld32(p + 8);
-        a[mt][3] = convk::ld32(p + 8 * XS + 8);
-      }
-#pragma unroll
-      for (int nt = 0; nt < T::NT; ++nt) {
-        // B[k][n] = weight of tap (kh, kw), output channel n, input channel k.
-        const bf16* p = ws + ((kh * 3 + kw) * T::CO_T + nt * 8 + g) * WS + 2 * t;
-        const uint32_t b[2] = {convk::ld32(p), convk::ld32(p + 8)};
-#pragma unroll
-        for (int mt = 0; mt < T::MT; ++mt) convk::mma_16816(acc[mt][nt], a[mt], b);
-      }
-    }
   }
 }
 
@@ -259,7 +200,8 @@ conv3x3_v3_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wt, bf16*
     if constexpr ((V3_PHASES & 1) != 0)
       stage_plane<T, VEC>(stage, xb, D, H, W, C, d - 1 + kd, h0 - 1, w0 - 1, c0);
     if constexpr ((V3_PHASES & 2) != 0)
-      stage_weights<T>(stage + T::SMEM_X, wt, Cout_pad, Cin_pad, co0, c0, kd);
+      convk::stage_weights_kd<NTHREADS, T::CO_T, WS>(stage + T::SMEM_X, wt, Cout_pad, Cin_pad,
+                                                      co0, c0, kd);
   };
 
   const int n_phases = 3 * (Cin_pad / KC);
@@ -272,7 +214,7 @@ conv3x3_v3_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wt, bf16*
     convk::cp_async_commit();
     if constexpr ((V3_PHASES & 4) != 0) {
       const bf16* stage = stages + (ph & 1) * T::STAGE;
-      mma_9taps<T>(acc, stage, stage + T::SMEM_X, warp, g, t);
+      convk::mma_9taps<T, XS, WS>(acc, stage, stage + T::SMEM_X, warp, g, t);
     }
   }
 

@@ -1,0 +1,127 @@
+"""A stride-1 conv + moments kernel of another checkout against this tree's.
+
+    python -m runet_tpu_torch.utils.bit_compare OTHER_CU [--log SMOKE_LOG ...] [--out PATH]
+
+OTHER_CU is ``csrc/conv3x3_stats.cu`` or ``csrc/conv3x3_stats_v2.cu`` of
+another checkout (a parent unpacked with ``git archive``). Both libraries are
+built (the other one as a probe library, this tree's as the port builds it)
+and loaded into one process; at every shape both run on the same random
+inputs (``torch.Generator`` seed 5), through ``conv_common.launch_conv_stats``,
+with x aligned and at an odd element offset (the element-load instance). Each
+of the change's runs, and the other library's odd-offset run, must give the
+other library's aligned y, sums and sqs bit for bit (``torch.equal``). The
+shapes, (B, D, C, H, W, Cout) with x (B, D, C, H, W): ``DEFAULT_SHAPES``,
+and every ``[kernels] <name> ...`` line of the ``chip_smoke.py`` logs given
+with ``--log``, so a kernel change is held to its parent at every shape the
+main paths launched. Prints one JSON object with the card's name and power
+limit, the count of shapes and the unequal ones (also written to ``--out``);
+exits 1 if any is unequal. Needs a GPU and nvcc.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import re
+import sys
+from pathlib import Path
+
+import torch
+
+from runet_tpu_torch.kernels import build, conv_common
+from runet_tpu_torch.utils.health import card_line
+
+KERNELS = ("conv3x3_stats", "conv3x3_stats_v2")
+DEFAULT_SHAPES = [
+    (2, 4, 32, 128, 128, 32), (2, 4, 64, 64, 64, 64), (2, 4, 128, 32, 32, 128),
+    (2, 4, 256, 16, 16, 256), (2, 4, 320, 8, 8, 320), (1, 5, 1, 20, 128, 32),
+    (2, 3, 40, 9, 24, 48), (1, 3, 33, 7, 20, 33), (1, 4, 16, 10, 96, 160),
+    (1, 3, 24, 11, 100, 64), (2, 5, 48, 7, 19, 24), (1, 3, 70, 3, 5, 40),
+    (1, 2, 1, 8, 96, 32), (1, 4, 16, 8, 8, 32), (1, 3, 16, 33, 40, 96),
+    (2, 3, 64, 17, 16, 64), (1, 6, 96, 18, 12, 192), (1, 2, 512, 4, 4, 64),
+]
+
+
+def logged_shapes(text: str, name: str) -> list[tuple[int, ...]]:
+    """(B, D, C, H, W, Cout) of every ``[kernels] <name> <path> x(...)->Cout``
+    line of a ``chip_smoke.py`` log."""
+    pat = re.compile(rf"\[kernels\] {re.escape(name)} \S+ x\(([\d, ]+)\)->(\d+) x")
+    return [(*(int(v) for v in m.group(1).split(",")), int(m.group(2)))
+            for m in pat.finditer(text)]
+
+
+def _other_library(source: Path, name: str) -> ctypes.CDLL:
+    path, job = build.start_probe(f'#include "{source}"\n', source, f"other_{name}")
+    if job is not None:
+        build._finish_build(job)
+    lib = ctypes.CDLL(str(path))
+    for suffix, (argtypes, restype) in conv_common._CONV_STATS_API.items():
+        fn = getattr(lib, f"{name}_{suffix}")
+        fn.argtypes, fn.restype = argtypes, restype
+    return lib
+
+
+def _at_odd_offset(t: torch.Tensor) -> torch.Tensor:
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    view = buf[1:1 + t.numel()].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("other", type=Path)
+    ap.add_argument("--log", type=Path, action="append", default=[])
+    ap.add_argument("--out", type=Path)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("bit_compare: no CUDA device", file=sys.stderr)
+        return 1
+    name = args.other.stem
+    if name not in KERNELS:
+        print(f"bit_compare: {name} is not one of {KERNELS}", file=sys.stderr)
+        return 1
+    other = _other_library(args.other.resolve(), name)
+    ours = conv_common._library(name, conv_common._CONV_STATS_API)
+    shapes = list(DEFAULT_SHAPES)
+    for log in args.log:
+        shapes += logged_shapes(log.read_text(), name)
+    shapes = list(dict.fromkeys(shapes))
+
+    def run(lib, x, k, packed):
+        conv_common._bound[name] = lib
+        try:
+            return conv_common.launch_conv_stats(name, x, packed, k.shape[4], x.shape[1:2]
+                                                 + x.shape[3:5])
+        finally:
+            conv_common._bound[name] = ours
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(5)
+    unequal = []
+    with torch.no_grad():
+        for B, D, C, H, W, Cout in shapes:
+            x = torch.randn((B, D, C, H, W), generator=gen, device=dev).to(torch.bfloat16)
+            k = (torch.randn((3, 3, 3, C, Cout), generator=gen, device=dev) / (27 * C) ** 0.5
+                 ).to(torch.bfloat16)
+            packed = conv_common.pack_weight(k)
+            xo = _at_odd_offset(x)
+            want = run(other, x, k, packed)
+            for tag, lib, xx in (("aligned", ours, x), ("odd", ours, xo), ("other odd", other, xo)):
+                got = run(lib, xx, k, packed)
+                if not all(torch.equal(u, v) for u, v in zip(got, want)):
+                    unequal.append({"shape": [B, D, C, H, W, Cout], "run": tag})
+    torch.cuda.synchronize()
+    result = {"card": card_line(), "kernel": name, "other": str(args.other),
+              "shapes": len(shapes), "unequal": unequal}
+    text = json.dumps(result)
+    if args.out:
+        args.out.parent.mkdir(parents=True, exist_ok=True)
+        args.out.write_text(text + "\n")
+    print(text)
+    return 1 if unequal else 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,8 +1,9 @@
 """Per-phase times of the v1 conv kernel (``csrc/conv3x3_stats_v1.cu``), of
-the stride-1 weight-gradient kernel (``csrc/conv3x3_dw.cu``) or of the attic
-NDHWC conv + moments (``csrc/conv3x3_ndhwc_stats.cu``).
+the stride-1 weight-gradient kernel (``csrc/conv3x3_dw.cu``), of the attic
+NDHWC conv + moments (``csrc/conv3x3_ndhwc_stats.cu``) or of the main-path
+v2m conv + moments (``csrc/conv3x3_stats.cu``).
 
-    python -m runet_tpu_torch.utils.phase_probe [--kernel {v1,dw1,v3}] [--source PATH]
+    python -m runet_tpu_torch.utils.phase_probe [--kernel {v1,dw1,v3,v2m}] [--source PATH]
         [--out PATH]
 
 Each kernel guards its three phases with a compile-time mask, 7 when
@@ -10,7 +11,8 @@ undefined: ``V1_PHASES`` for v1 (1 the im2col build, 2 the weight staging,
 4 the GEMM), ``DW1_PHASES`` for dw1 (in ``conv3x3_dw_s1.cuh``: 1 the x
 staging, 2 the g staging, 4 the MMAs), ``V3_PHASES`` for v3 (in
 ``conv3x3_ndhwc_stats.cuh``: 1 the halo copies, 2 the weight copies, 4 the
-MMAs). This builds the source (this tree's, or another checkout's with
+MMAs), ``V2M_PHASES`` for v2m (in ``conv3x3_stats.cuh``: 1 the halo copies
+and their transpose, 2 the weight copies, 4 the MMAs). This builds the source (this tree's, or another checkout's with
 ``--source``) four times, as probe libraries that ``#define`` the mask to 7,
 6, 5 and 3 and then ``#include`` the source, and times each library's launch
 entry with CUDA events on the same random inputs: for v1
@@ -20,7 +22,8 @@ entry with CUDA events on the same random inputs: for v1
 32→32; B 2, 32³, 128→128; B 2, 16³, 256→256; for v3
 ``conv3x3_ndhwc_stats_launch`` (the conv kernel and its moment reduction)
 at the kernel bench's ``fine_l2`` (B 1, 32³, 128→128) and ``fine_l3`` (B 1,
-16³, 256→256). A phase's share is 1 − t(without it) / t(all). A build without a phase
+16³, 256→256); for v2m ``conv3x3_stats_launch`` (the conv kernel and its
+moment reduction) at the same two and at B 2, 128³, 32→32. A phase's share is 1 − t(without it) / t(all). A build without a phase
 computes a wrong output: only its time is read. Prints one JSON object with
 the ms per mask, the shares and the card's name and power limit (also
 written to ``--out``). Needs a GPU and nvcc.
@@ -90,6 +93,31 @@ def _dw1_launcher(libs, shape, gen):
     return launch
 
 
+def _v2m_launcher(libs, shape, gen):
+    """A launch of one v2m probe library at (B, edge, Cin, Cout), x DCHW."""
+    B, e, cin, cout = shape
+    dev = torch.device("cuda")
+    x = torch.randn((B, e, cin, e, e), generator=gen, device=dev).to(torch.bfloat16)
+    k = (torch.randn((3, 3, 3, cin, cout), generator=gen, device=dev) / (27 * cin) ** 0.5
+         ).to(torch.bfloat16)
+    packed = pack_weight(k)
+    cout_p, cin_p = packed.shape[1], packed.shape[2]
+    nblk = int(next(iter(libs.values())).conv3x3_stats_nblk(e, e, e))
+    y = torch.empty((B, e, cout, e, e), dtype=torch.bfloat16, device=dev)
+    psum = torch.empty((B, cout_p, nblk), dtype=torch.float32, device=dev)
+    psq = torch.empty_like(psum)
+    sums = torch.empty((B, cout), dtype=torch.float32, device=dev)
+    sqs = torch.empty_like(sums)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def launch(lib):
+        return lib.conv3x3_stats_launch(x.data_ptr(), packed.data_ptr(), y.data_ptr(),
+                                        psum.data_ptr(), psq.data_ptr(), sums.data_ptr(),
+                                        sqs.data_ptr(), B, e, cin, e, e, cout, cin_p, cout_p,
+                                        stream)
+    return launch
+
+
 def _v3_launcher(libs, shape, gen):
     """A launch of one v3 probe library at (B, edge, Cin, Cout), x NDHWC."""
     B, e, cin, cout = shape
@@ -140,6 +168,11 @@ KERNELS = {
                  {k: _CONV_STATS_API[k] for k in ("launch", "nblk")},
                  {"halo": 6, "weights": 5, "mma": 3},
                  {"fine_l2": (1, 32, 128, 128), "fine_l3": (1, 16, 256, 256)}, _v3_launcher),
+    "v2m": Kernel(build.CSRC / "conv3x3_stats.cu", "V2M_PHASES", "conv3x3_stats",
+                  {k: _CONV_STATS_API[k] for k in ("launch", "nblk")},
+                  {"halo": 6, "weights": 5, "mma": 3},
+                  {"fine_l2": (1, 32, 128, 128), "fine_l3": (1, 16, 256, 256),
+                   "128^3 32->32": (2, 128, 32, 32)}, _v2m_launcher),
 }
 SOURCE = KERNELS["v1"].source
 ALL = 7

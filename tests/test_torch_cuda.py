@@ -300,6 +300,104 @@ def test_conv3x3_stats_variant_kernels_are_deterministic_across_tile_seams(cuda,
         assert torch.equal(u, v)
 
 
+# The v2m kernel's tile follows W and Cout_pad: 8 rows x 32 columns x 64
+# channels where W > 16 and Cout_pad % 64 == 0, 8 x 32 x 32 where W > 16
+# otherwise, 16 x 16 x 32 where W <= 16; (D, C, H, W, Cout) at B = 1.
+_V2M_TILE_SHAPES = [
+    (4, 24, 13, 128, 32),     # 8 x 32 x 32, 16-byte copies; H = 13: a ragged row tile
+    (3, 40, 9, 33, 80),       # 8 x 32 x 32 at Cout_pad 96; W = 33: element loads, a
+                              # one-column second tile; Cin % 16 = 8
+    (4, 128, 12, 32, 128),    # 8 x 32 x 64 (fine_l2's widths)
+    (4, 64, 13, 17, 64),      # 8 x 32 x 64 at W = 17: element loads, 15 padded columns
+    (2, 256, 16, 16, 256),    # 16 x 16 (fine_l3's widths)
+    (4, 64, 12, 16, 64),      # 16 x 16, H = 12: the tile's second moment slot is partial
+    (3, 320, 8, 8, 320),      # 16 x 16 at H = 8: no second moment slot; W = 8
+    (5, 128, 13, 12, 96),     # 16 x 16 at W = 12 (element loads), Cout_pad 96
+    (1, 16, 1, 1, 32),        # one voxel
+]
+
+
+def _v2m_digests(shape, device):
+    """sha256 of y's bytes, and of sums' then sqs' bytes, of the v2m kernel
+    from numpy inputs (seed 33) at (D, C, H, W, Cout), B = 1."""
+    import hashlib
+
+    D, C, H, W, Cout = shape
+    x, k = _inputs((1, D, C, H, W), C, Cout, 33, device)
+    y, s, q = _own_sums(x, k, "v2m")
+    y_bytes = y.cpu().view(torch.int16).numpy().tobytes()
+    m_bytes = s.cpu().numpy().tobytes() + q.cpu().numpy().tobytes()
+    return hashlib.sha256(y_bytes).hexdigest(), hashlib.sha256(m_bytes).hexdigest()
+
+
+# Digests (``_v2m_digests``) recorded from the kernel that staged 8 x 32 x 32
+# tiles synchronously, before the tiles followed W and Cout_pad and the kd
+# planes went through a cp.async ring, on an NVIDIA H100 80GB HBM3: y, sums
+# and sqs at every shape.
+_V2M_DIGESTS = {
+    (4, 24, 13, 128, 32): (
+        "1c0fef7f262e56a5ee5d3ce82bb475563eba2369d4fb37b36784f5b978c60b6e",
+        "63c3fcd0075d5c630244b716cc4ad4ea40f473317773695b9e2d59abbb235c5f"),
+    (3, 40, 9, 33, 80): (
+        "e001846676dd525f9998e73bb8d049a72ad050d098ebe43fdc836c4c4ec085fc",
+        "a4cda5d1d7eb7926127f5f2ee9a680104859da11582bd7e77cb0db1da9799d14"),
+    (4, 128, 12, 32, 128): (
+        "2c11e6520838b2d9fa06759b60c863f1e863390effe8b77093e1c6b49a849a78",
+        "a551c3e11b8e626ecd01c61d44e2f58c6bbab24d64787e4655b85e4bb314c73a"),
+    (4, 64, 13, 17, 64): (
+        "4c7adb0d1999ebb254d29402b3bbe169f042299335257d8fd70ce8fe6c729254",
+        "ad4c70dfa98a37d577f9bd2af8f4d011859e1d75bec38dd79b9d55eee9300ddf"),
+    (2, 256, 16, 16, 256): (
+        "0762c0644a5c9e02e14a9dfe73939b2563b1f606a9734c93f889c8755dc2cf0e",
+        "2bf1b5faabf01f028b57de8ca989d5ed912bd53b97b01aa37a81f2df6abf9783"),
+    (4, 64, 12, 16, 64): (
+        "b03ea9347fb5850b0be1b016de974d6084bc2f393d37c4a2040750e4a73759c8",
+        "f76bc7ffe726540b58851eda5fcacac9e4ac65688a5076966be57da5811bf800"),
+    (3, 320, 8, 8, 320): (
+        "e0d3c978de14d8af3bd0a1f30f0295e44722b29effdb51c19a20f0c35cd8b4c4",
+        "c60563323119b21948ef644e89eb5bb40f04a07a610ae96397507d95841db266"),
+    (5, 128, 13, 12, 96): (
+        "1943340d46e529964ba1d42cdac3b7f72fcac8f15f000a1dc103319d96baed18",
+        "7fe24ad372bc2a82f276ed3aa99ba883d576f1e86fc1f8bdec3e3e58f168e7af"),
+    (1, 16, 1, 1, 32): (
+        "7e54204c62ce1a97442e1f9017bc335f5d510a900f1cd61b67a81116f95bd336",
+        "d101c2d6c26cb744306c2e5e4dd185355c8c2c58d5547e0e9693efc7b10400ea"),
+}
+
+
+@pytest.mark.parametrize("shape", _V2M_TILE_SHAPES)
+def test_conv3x3_stats_keeps_its_recorded_bits(cuda, shape):
+    assert _v2m_digests(shape, cuda) == _V2M_DIGESTS[shape]
+
+
+@pytest.mark.parametrize("shape", _V2M_TILE_SHAPES)
+def test_conv3x3_stats_tiles_match_plain_and_keep_bits_at_an_odd_offset(cuda, shape):
+    """Each tile against the plain version, and x one element past a
+    16-byte boundary (the element-load instance) bit-equal to the aligned
+    run: y, sums and sqs."""
+    D, C, H, W, Cout = shape
+    x, k = _inputs((1, D, C, H, W), C, Cout, 34, cuda)
+    packed = pack_weight(k)
+    aligned = _own_sums(x, k, "v2m")
+    got = _own_sums(_at_odd_offset(x), k, "v2m")
+    torch.cuda.synchronize()
+    for u, v in zip(got, aligned):
+        assert torch.equal(u, v)
+    assert_conv_stats_close(fused_block.conv_in_stats_dchw_batch(x, k, packed),
+                            fused_block.conv3x3_stats_plain(x, k))
+
+
+def test_conv3x3_stats_nblk_keeps_the_8_by_32_slots(cuda):
+    """One moment slot per (d, 8-row tile, 32-column tile) whatever the tile
+    (``launch_conv_stats`` sizes the scratch from the library's count)."""
+    from runet_tpu_torch.kernels.conv_common import _CONV_STATS_API, _library
+
+    lib = _library(fused_block.SOURCE, _CONV_STATS_API)
+    for D, H, W in ((4, 13, 8), (4, 13, 16), (4, 13, 17), (4, 12, 128), (3, 8, 8), (1, 1, 1),
+                    (32, 32, 32), (16, 16, 16), (3, 35, 70)):
+        assert lib.conv3x3_stats_nblk(D, H, W) == D * -(-H // 8) * -(-W // 32), (D, H, W)
+
+
 def test_conv3x3_stats_v1_is_deterministic_across_4_row_tile_seams(cuda):
     """H = 9: three 4-row tiles, five 2-row moment slots, the last tile
     with one; three column tiles."""

@@ -236,3 +236,51 @@ def test_phase_probe_v3_exits_nonzero_without_cuda(no_cuda, tmp_path):
     out = tmp_path / "phases.json"
     assert phase_probe.main(["--kernel", "v3", "--out", str(out)]) != 0
     assert not out.exists()
+
+
+def test_phase_probe_v2m_defines_its_mask_and_includes_the_source(tmp_path):
+    from runet_tpu_torch.kernels import build
+    from runet_tpu_torch.utils import phase_probe
+
+    src = tmp_path / "k.cu"
+    text = phase_probe.probe_source(src, 5, "V2M_PHASES")
+    assert text.splitlines() == ["#define V2M_PHASES 5", f'#include "{src.resolve()}"']
+    v2m = phase_probe.KERNELS["v2m"]
+    assert v2m.macro == "V2M_PHASES" and v2m.source.name == "conv3x3_stats.cu"
+    assert v2m.source.exists() and '#include "conv3x3_stats.cuh"' in v2m.source.read_text()
+    assert "#ifndef V2M_PHASES" in (build.CSRC / "conv3x3_stats.cuh").read_text()
+    assert v2m.without == {"halo": 6, "weights": 5, "mma": 3}
+    assert v2m.geometries == {"fine_l2": (1, 32, 128, 128), "fine_l3": (1, 16, 256, 256),
+                              "128^3 32->32": (2, 128, 32, 32)}
+    assert set(v2m.api) == {"launch", "nblk"}
+
+
+def test_phase_probe_v2m_exits_nonzero_without_cuda(no_cuda, tmp_path):
+    from runet_tpu_torch.utils import phase_probe
+
+    out = tmp_path / "phases.json"
+    assert phase_probe.main(["--kernel", "v2m", "--out", str(out)]) != 0
+    assert not out.exists()
+
+
+def test_bit_compare_reads_the_kernel_lines_of_a_smoke_log():
+    from runet_tpu_torch.utils import bit_compare
+
+    log = "\n".join([
+        "[kernels] conv3x3_stats serve x(1, 6, 320, 6, 10)->320 x2: err 0.0156 ms 0.1581",
+        "[kernels] conv3x3_stats_v2 serve_renal x(1, 6, 64, 6, 10)->64 x2: err 0.0156",
+        "[kernels] conv3x3_stats train x(2, 128, 32, 128, 128)->32 x14: err 0.0078",
+        "[tiles] conv3x3_stats Wide32 x(1, 4, 24, 13, 128)->32: err 0.0078",
+    ])
+    assert bit_compare.logged_shapes(log, "conv3x3_stats") == [(1, 6, 320, 6, 10, 320),
+                                                               (2, 128, 32, 128, 128, 32)]
+    assert bit_compare.logged_shapes(log, "conv3x3_stats_v2") == [(1, 6, 64, 6, 10, 64)]
+    assert all(len(s) == 6 for s in bit_compare.DEFAULT_SHAPES)
+
+
+def test_bit_compare_exits_nonzero_without_cuda(no_cuda, tmp_path):
+    from runet_tpu_torch.utils import bit_compare
+
+    out = tmp_path / "bits.json"
+    assert bit_compare.main([str(tmp_path / "conv3x3_stats.cu"), "--out", str(out)]) != 0
+    assert not out.exists()
