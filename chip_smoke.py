@@ -106,8 +106,11 @@ Phases (any failure exits non-zero; nothing is caught and printed over):
    bf16 and at (1, 3, 5, 7, 20) bf16 and f32; row 1 (v2m) at one shape
    per tile, instance and edge (``V2M_TILE_CASES``: 8 x 32 x 32 with and
    without 16-byte copies and at Cout_pad 96, 8 x 32 x 64 at W = 32 and 17,
-   16 x 16 x 32 at H = 16, 12 and 8 and W = 12, one voxel), x also at an
-   odd offset, bits equal. Then the gradient of the
+   16 x 16 x 32 at H = 16, 12 and 8 and W = 12, one voxel) and row 5 (v2)
+   likewise (``V2_TILE_CASES``: 8 x 32 x 32 with and without 16-byte
+   copies, at Cout_pad 96, Cout 128, W = 17 and Cin 1, 16 x 16 x 32 at H =
+   16, 12 and 8 and W = 12, one voxel), x also at an odd offset, bits
+   equal. Then the gradient of the
    attic conv's autograd Function (dx through the kernel, dw by the
    framework in f32) at two small shapes against autograd through
    ``F.conv3d`` in true f32.
@@ -1090,6 +1093,12 @@ V2M_TILE_CASES = [("Wide32", (4, 24, 13, 128), 32), ("Wide32 Cout_pad 96", (3, 4
                   ("Narrow", (2, 256, 16, 16), 256), ("Narrow H 12", (4, 64, 12, 16), 64),
                   ("Narrow H 8", (3, 320, 8, 8), 320), ("Narrow W 12", (5, 128, 13, 12), 96),
                   ("one voxel", (1, 16, 1, 1), 32)]
+# Row 5 (v2) likewise: its tile follows W (8 x 32 x 32, 16 x 16 x 32).
+V2_TILE_CASES = [("Wide32", (4, 24, 13, 128), 32), ("Wide32 Cout_pad 96", (3, 40, 9, 33), 80),
+                 ("Wide32 Cout 128", (4, 128, 12, 32), 128), ("Wide32 W 17", (4, 64, 13, 17), 64),
+                 ("Wide32 Cin 1", (2, 1, 10, 40), 24), ("Narrow", (2, 256, 16, 16), 256),
+                 ("Narrow H 12", (4, 64, 12, 16), 64), ("Narrow H 8", (3, 320, 8, 8), 320),
+                 ("Narrow W 12", (5, 128, 13, 12), 80), ("one voxel", (1, 16, 1, 1), 32)]
 ATTIC_NORM_CASES = [("deep", (1, 8, 8, 8, 320), torch.bfloat16),
                     ("odd", (1, 3, 5, 7, 20), torch.bfloat16),
                     ("odd f32", (1, 3, 5, 7, 20), torch.float32)]
@@ -1267,36 +1276,39 @@ def _attic_grad_check(shape, cout, gen, dev) -> tuple[float, float]:
     return _check_y(xk.grad, xr.grad), _check_y(wk.grad, wr.grad)
 
 
-def _v2m_tile_case(x_shape, cout, gen, dev) -> dict:
-    """Row 1 against its plain version on random inputs, untimed; x at an
-    odd offset (the element-load instance) must give the aligned run's y,
-    sums and sqs bit for bit."""
+def _v2m_tile_case(x_shape, cout, gen, dev, version: str = "v2m") -> dict:
+    """Row 1 (``version`` "v2": row 5) against its plain version on random
+    inputs, untimed; x at an odd offset (the element-load instance) must
+    give the aligned run's y, sums and sqs bit for bit."""
     from runet_tpu_torch.kernels import fused_block
     from runet_tpu_torch.kernels.conv_common import pack_weight
 
+    plain = fused_block.conv3x3_stats_v2_plain if version == "v2" \
+        else fused_block.conv3x3_stats_plain
     C = x_shape[2]
     x = torch.randn(x_shape, generator=gen, device=dev).to(torch.bfloat16)
     k = (torch.randn((3, 3, 3, C, cout), generator=gen, device=dev) / math.sqrt(27 * C)
          ).to(torch.bfloat16)
     packed = pack_weight(k)
     with torch.no_grad():
-        max_err, rel = _check(fused_block.conv_in_stats_dchw_batch(x, k, packed),
-                              fused_block.conv3x3_stats_plain(x, k))
-        want = fused_block._conv3x3_sums(x, k, packed)
-        got = fused_block._conv3x3_sums(_at_odd_offset(x), k, packed)
+        max_err, rel = _check(fused_block.conv_in_stats_dchw_batch(x, k, packed, version),
+                              plain(x, k))
+        want = fused_block._conv3x3_sums(x, k, packed, version)
+        got = fused_block._conv3x3_sums(_at_odd_offset(x), k, packed, version)
     for name, u, v in zip(("y", "sums", "sqs"), got, want):
         if not torch.equal(u, v):
-            raise AssertionError(f"v2m at x {tuple(x_shape)}->{cout}: {name} at an odd offset "
-                                 f"differs from the aligned run")
+            raise AssertionError(f"{version} at x {tuple(x_shape)}->{cout}: {name} at an odd "
+                                 f"offset differs from the aligned run")
     return {"max_abs_err": max_err, "rel_err": rel}
 
 
 def phase_attic(dev) -> dict:
     """The four attic kernels against their plain versions at the shapes
     the kernel bench does not launch (odd shapes, the deepest level's norm,
-    f32), untimed; row 1 at one shape per tile, instance and edge
-    (``V2M_TILE_CASES``), untimed; the attic conv's gradient. Returns
-    {kernel: [case, ...]} in ``phase_kernels``' form, without times."""
+    f32), untimed; rows 1 and 5 at one shape per tile, instance and edge
+    (``V2M_TILE_CASES``, ``V2_TILE_CASES``), untimed; the attic conv's
+    gradient. Returns {kernel: [case, ...]} in ``phase_kernels``' form,
+    without times."""
     from runet_tpu_torch.kernels import fused_block
     from runet_tpu_torch.kernels.attic import conv3d, conv_v3_deep, fused_norm
 
@@ -1318,13 +1330,15 @@ def phase_attic(dev) -> dict:
             out[name].append({"path": "attic", "x_shape": list(shape), "cout": shape[-1],
                               "launches": 0, "reused": False, "tag": tag,
                               "dtype": str(dtype).removeprefix("torch."), **case})
-    for tag, (D, C, H, W), cout in V2M_TILE_CASES:
-        case = _v2m_tile_case((1, D, C, H, W), cout, gen, dev)
-        out.setdefault(fused_block.SOURCE, []).append(
-            {"path": "tiles", "x_shape": [1, D, C, H, W], "cout": cout, "launches": 0,
-             "reused": False, "tag": tag, **case})
-        log(f"[tiles] {fused_block.SOURCE} {tag} x{(1, D, C, H, W)}->{cout}: err "
-            f"{case['max_abs_err']:.3g} (rel {case['rel_err']:.2e}), odd offset bit-equal")
+    for version, source, cases in (("v2m", fused_block.SOURCE, V2M_TILE_CASES),
+                                   ("v2", fused_block.V2_SOURCE, V2_TILE_CASES)):
+        for tag, (D, C, H, W), cout in cases:
+            case = _v2m_tile_case((1, D, C, H, W), cout, gen, dev, version)
+            out.setdefault(source, []).append(
+                {"path": "tiles", "x_shape": [1, D, C, H, W], "cout": cout, "launches": 0,
+                 "reused": False, "tag": tag, **case})
+            log(f"[tiles] {source} {tag} x{(1, D, C, H, W)}->{cout}: err "
+                f"{case['max_abs_err']:.3g} (rel {case['rel_err']:.2e}), odd offset bit-equal")
     for shape, cout in (((5, 7, 9, 12), 10), ((16, 24, 40, 32), 48)):
         dx_err, dw_err = _attic_grad_check(shape, cout, gen, dev)
         log(f"[attic] attic conv Function gradient at x{shape}->{cout} vs f32 autograd "
@@ -1422,8 +1436,8 @@ def kernel_lines(measured, path_counts):
     ``pair_library_ms``: ``F.instance_norm`` + ``F.leaky_relu``), and the
     lines of the three stride-1 kernels (v2m, v2, v1) and of the stride-1
     weight gradient the time of their element-load instance over the same
-    shapes (``element_ms``); the v2m line its main-path sums by shape
-    class (``ms_by_class``); the v3 line carries its kernel's and its
+    shapes (``element_ms``); the v2m and v2 lines their main-path sums by
+    shape class (``ms_by_class``); the v3 line carries its kernel's and its
     library call's CUDA-graph times over the same shapes (``graph_ms``,
     ``graph_library_ms``)."""
     replaces = {
@@ -1472,16 +1486,16 @@ def kernel_lines(measured, path_counts):
             "path_ms": {p: sum(c["ms"] * c["launches"] for c in every if c["path"] == p)
                         for p in launched},
             **({"ms_by_class": _v2m_classes([c for c in cs if c["path"] != "kernel_bench"])}
-               if name == "conv3x3_stats" else {}),
+               if name in ("conv3x3_stats", "conv3x3_stats_v2") else {}),
         })
     return kernels
 
 
 def _v2m_classes(cases) -> dict:
-    """Row 1's timed main-path shapes in the classes its tiles were
-    redesigned for: deep (Cin >= 128, W < 128), narrow (W <= 16; on the main
-    paths all are also deep) and the rest (neither); shapes, ms, cuDNN +
-    sums ms and bound ms of each."""
+    """Row 1's (or row 5's) timed main-path shapes in the classes their
+    tiles were redesigned for: deep (Cin >= 128, W < 128), narrow (W <= 16;
+    on the main paths all are also deep) and the rest (neither); shapes,
+    ms, cuDNN + sums ms and bound ms of each."""
     classes = {"deep": lambda C, W: C >= 128 and W < 128, "narrow": lambda C, W: W <= 16,
                "rest": lambda C, W: not (C >= 128 and W < 128) and W > 16}
     out = {}

@@ -1,14 +1,14 @@
 // Shared pieces of the 3x3x3 conv kernels (conv3x3_stats{,_v2,_v1}.cu,
 // conv3x3_s2_stats.cu, the NDHWC kernels of conv3x3_ndhwc{,_stats}.cuh, and
 // the dw kernels through conv3x3_dw_common.cuh): the 16-byte chunk load
-// along W, cp.async, the bf16 tensor-core MMA and the transposing ldmatrix,
-// the staging of a chunk's weights, the 27-tap MMA loop over a
-// channel-innermost halo; for the kernels that stage one (chunk, kd plane)
-// phase at a time (conv3x3_stats.cuh, conv3x3_ndhwc_stats.cuh) their tile,
-// the copies of a plane's 9 taps of weights and the 9-tap MMA loop; the
-// epilogue that rounds the output to bf16 and folds it into per-block
-// moment partials, and the second pass that reduces those partials (also
-// the instance-norm statistics' second pass).
+// along W, cp.async, the bf16 tensor-core MMA and ldmatrix (plain and
+// transposing), the staging of a chunk's weights, the 27-tap MMA loop over
+// a channel-innermost halo; for the kernels that stage one (chunk, kd
+// plane) phase at a time (conv3x3_stats{,_v2}.cuh, conv3x3_ndhwc_stats.cuh)
+// their tile, the copies of a plane's 9 taps of weights and the 9-tap MMA
+// loop; the epilogue that rounds the output to bf16 and folds it into
+// per-block moment partials, and the second pass that reduces those
+// partials (also the instance-norm statistics' second pass).
 //
 // Moments are deterministic: each block writes its per-channel partial sums
 // to a scratch slot of its own (fixed-order in-block reduction: per-thread
@@ -107,6 +107,23 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&a)[4], const bf16* 
   const uint32_t addr = (uint32_t)__cvta_generic_to_shared(p);
   asm volatile(
       "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
+      : "r"(addr));
+}
+
+// Four 8x8 bf16 matrices from shared memory as they are stored: lane l
+// supplies the 16-byte-aligned address of row (l % 8) of matrix (l / 8), and
+// register j of lane (g = l / 4, t = l % 4) holds row g, columns 2t..2t+1 of
+// matrix j. With the matrices stored row-major (m rows, 8 contiguous k) the
+// four registers are the A fragment of mma_16816 when matrix 0 holds (m 0-7,
+// k 0-7), 1 (m 8-15, k 0-7), 2 (m 0-7, k 8-15), 3 (m 8-15, k 8-15); stored
+// n-major (n rows, 8 contiguous k), registers 0-1 and 2-3 are the B
+// fragments of two n8 tiles when matrix 0 holds (n 0-7, k 0-7), 1 (n 0-7, k
+// 8-15), 2 (n 8-15, k 0-7), 3 (n 8-15, k 8-15).
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&a)[4], const bf16* p) {
+  const uint32_t addr = (uint32_t)__cvta_generic_to_shared(p);
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
       : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
       : "r"(addr));
 }

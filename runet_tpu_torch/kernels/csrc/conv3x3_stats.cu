@@ -42,6 +42,37 @@
 // re-stages its 9 taps' weights per phase; the GEMM is mma.sync, not wgmma.
 #include "conv3x3_stats.cuh"
 
+namespace v2m {
+
+// Launch the conv kernel and the moment reduction on `stream`. psum/psq:
+// (B, Cout_pad, nblk(D, H, W)) f32 scratch; sums/sqs: (B, Cout) f32. x takes
+// the cp.async copies when W % 8 == 0 and x is 16-byte aligned. Returns
+// cudaGetLastError().
+static int launch(const void* x, const void* wt, void* y, void* psum, void* psq, void* sums,
+                  void* sqs, int B, int D, int C, int H, int W, int Cout, int Cin_pad,
+                  int Cout_pad, void* stream) {
+  typedef int (*Launch)(const bf16*, const bf16*, bf16*, float*, float*, int, int, int, int, int,
+                        int, int, int, cudaStream_t);
+  static const Launch table[3][2] = {
+      {launch_tile<Narrow, false>, launch_tile<Narrow, true>},
+      {launch_tile<Wide32, false>, launch_tile<Wide32, true>},
+      {launch_tile<Wide64, false>, launch_tile<Wide64, true>}};
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  const int tile = W <= 16 ? 0 : Cout_pad % 64 == 0 ? 2 : 1;
+  const bool vx = W % 8 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  const int e = table[tile][vx](static_cast<const bf16*>(x), static_cast<const bf16*>(wt),
+                                static_cast<bf16*>(y), static_cast<float*>(psum),
+                                static_cast<float*>(psq), B, D, C, H, W, Cout, Cin_pad, Cout_pad,
+                                st);
+  if (e != cudaSuccess) return e;
+  convk::reduce_moments<<<dim3(Cout, B), 256, 0, st>>>(
+      static_cast<const float*>(psum), static_cast<const float*>(psq),
+      static_cast<float*>(sums), static_cast<float*>(sqs), nblk(D, H, W), Cout, Cout_pad);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace v2m
+
 extern "C" {
 
 // Geometry the caller needs to size the scratch: the Cout multiple of the

@@ -14,8 +14,8 @@ by a second pass (no float atomics):
   a channel-innermost shared-memory halo, 27 taps per 16-channel chunk.
 - ``csrc/conv3x3_stats_v2.cu`` replaces ``_conv_stats_kernel_v2``
   (``"v2"``): the same contract, as nine (kh, kw) tap GEMMs with kd folded
-  into K, read with ldmatrix.trans from W-shifted copies of a W-innermost
-  slab.
+  into K per 16-channel chunk, on the v2m kernel's 8 x 32 x 32 and 16 x 16
+  x 32 tiles from three channel-innermost kd planes in shared memory.
 - ``csrc/conv3x3_stats_v1.cu`` replaces ``_conv_stats_kernel`` (``"v1"``):
   the (B, D, H, C, W) layout in and out, one GEMM over the whole K = 27·C
   from an im2col tile built in shared memory.

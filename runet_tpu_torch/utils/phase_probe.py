@@ -1,10 +1,11 @@
 """Per-phase times of the v1 conv kernel (``csrc/conv3x3_stats_v1.cu``), of
 the stride-1 weight-gradient kernel (``csrc/conv3x3_dw.cu``), of the attic
-NDHWC conv + moments (``csrc/conv3x3_ndhwc_stats.cu``) or of the main-path
-v2m conv + moments (``csrc/conv3x3_stats.cu``).
+NDHWC conv + moments (``csrc/conv3x3_ndhwc_stats.cu``), of the main-path
+v2m conv + moments (``csrc/conv3x3_stats.cu``) or of the v2 conv + moments
+(``csrc/conv3x3_stats_v2.cu``).
 
-    python -m runet_tpu_torch.utils.phase_probe [--kernel {v1,dw1,v3,v2m}] [--source PATH]
-        [--out PATH]
+    python -m runet_tpu_torch.utils.phase_probe [--kernel {v1,dw1,v3,v2m,v2}]
+        [--source PATH] [--out PATH]
 
 Each kernel guards its three phases with a compile-time mask, 7 when
 undefined: ``V1_PHASES`` for v1 (1 the im2col build, 2 the weight staging,
@@ -12,21 +13,24 @@ undefined: ``V1_PHASES`` for v1 (1 the im2col build, 2 the weight staging,
 staging, 2 the g staging, 4 the MMAs), ``V3_PHASES`` for v3 (in
 ``conv3x3_ndhwc_stats.cuh``: 1 the halo copies, 2 the weight copies, 4 the
 MMAs), ``V2M_PHASES`` for v2m (in ``conv3x3_stats.cuh``: 1 the halo copies
-and their transpose, 2 the weight copies, 4 the MMAs). This builds the source (this tree's, or another checkout's with
-``--source``) four times, as probe libraries that ``#define`` the mask to 7,
-6, 5 and 3 and then ``#include`` the source, and times each library's launch
-entry with CUDA events on the same random inputs: for v1
-``conv3x3_stats_v1_launch`` (the conv kernel and its moment reduction) at B
-2, 128³, 32→32; B 2, 32³, 128→128; B 1, 8³, 320→320; for dw1
-``conv3x3_dw_launch`` (the dw kernel and its split reduction) at B 2, 128³,
-32→32; B 2, 32³, 128→128; B 2, 16³, 256→256; for v3
-``conv3x3_ndhwc_stats_launch`` (the conv kernel and its moment reduction)
-at the kernel bench's ``fine_l2`` (B 1, 32³, 128→128) and ``fine_l3`` (B 1,
+and their transpose, 2 the weight copies, 4 the MMAs), ``V2_PHASES`` for v2
+(in ``conv3x3_stats_v2.cuh``: the same three phases). This builds the source
+(this tree's, or another checkout's with ``--source``) four times, as probe
+libraries that ``#define`` the mask to 7, 6, 5 and 3 and then ``#include``
+the source, and times each library's launch entry with CUDA events on the
+same random inputs: for v1 ``conv3x3_stats_v1_launch`` (the conv kernel and
+its moment reduction) at B 2, 128³, 32→32; B 2, 32³, 128→128; B 1, 8³,
+320→320; for dw1 ``conv3x3_dw_launch`` (the dw kernel and its split
+reduction) at B 2, 128³, 32→32; B 2, 32³, 128→128; B 2, 16³, 256→256; for v3
+``conv3x3_ndhwc_stats_launch`` (the conv kernel and its moment reduction) at
+the kernel bench's ``fine_l2`` (B 1, 32³, 128→128) and ``fine_l3`` (B 1,
 16³, 256→256); for v2m ``conv3x3_stats_launch`` (the conv kernel and its
-moment reduction) at the same two and at B 2, 128³, 32→32. A phase's share is 1 − t(without it) / t(all). A build without a phase
-computes a wrong output: only its time is read. Prints one JSON object with
-the ms per mask, the shares and the card's name and power limit (also
-written to ``--out``). Needs a GPU and nvcc.
+moment reduction) at the same two and at B 2, 128³, 32→32, for v2
+``conv3x3_stats_v2_launch`` at the same three. A phase's share is 1 −
+t(without it) / t(all). A build without a phase computes a wrong output:
+only its time is read. Prints one JSON object with the ms per mask, the
+shares and the card's name and power limit (also written to ``--out``).
+Needs a GPU and nvcc.
 """
 
 from __future__ import annotations
@@ -36,6 +40,7 @@ import ctypes
 import json
 import sys
 from dataclasses import dataclass
+from functools import partial
 from pathlib import Path
 
 import torch
@@ -93,8 +98,9 @@ def _dw1_launcher(libs, shape, gen):
     return launch
 
 
-def _v2m_launcher(libs, shape, gen):
-    """A launch of one v2m probe library at (B, edge, Cin, Cout), x DCHW."""
+def _dchw_launcher(prefix, libs, shape, gen):
+    """A launch of one (B, D, C, H, W) conv + moments probe library, whose C
+    entries start with ``prefix``, at (B, edge, Cin, Cout)."""
     B, e, cin, cout = shape
     dev = torch.device("cuda")
     x = torch.randn((B, e, cin, e, e), generator=gen, device=dev).to(torch.bfloat16)
@@ -102,7 +108,7 @@ def _v2m_launcher(libs, shape, gen):
          ).to(torch.bfloat16)
     packed = pack_weight(k)
     cout_p, cin_p = packed.shape[1], packed.shape[2]
-    nblk = int(next(iter(libs.values())).conv3x3_stats_nblk(e, e, e))
+    nblk = int(getattr(next(iter(libs.values())), f"{prefix}_nblk")(e, e, e))
     y = torch.empty((B, e, cout, e, e), dtype=torch.bfloat16, device=dev)
     psum = torch.empty((B, cout_p, nblk), dtype=torch.float32, device=dev)
     psq = torch.empty_like(psum)
@@ -111,10 +117,10 @@ def _v2m_launcher(libs, shape, gen):
     stream = torch.cuda.current_stream(dev).cuda_stream
 
     def launch(lib):
-        return lib.conv3x3_stats_launch(x.data_ptr(), packed.data_ptr(), y.data_ptr(),
-                                        psum.data_ptr(), psq.data_ptr(), sums.data_ptr(),
-                                        sqs.data_ptr(), B, e, cin, e, e, cout, cin_p, cout_p,
-                                        stream)
+        return getattr(lib, f"{prefix}_launch")(x.data_ptr(), packed.data_ptr(), y.data_ptr(),
+                                                psum.data_ptr(), psq.data_ptr(), sums.data_ptr(),
+                                                sqs.data_ptr(), B, e, cin, e, e, cout, cin_p,
+                                                cout_p, stream)
     return launch
 
 
@@ -172,7 +178,12 @@ KERNELS = {
                   {k: _CONV_STATS_API[k] for k in ("launch", "nblk")},
                   {"halo": 6, "weights": 5, "mma": 3},
                   {"fine_l2": (1, 32, 128, 128), "fine_l3": (1, 16, 256, 256),
-                   "128^3 32->32": (2, 128, 32, 32)}, _v2m_launcher),
+                   "128^3 32->32": (2, 128, 32, 32)}, partial(_dchw_launcher, "conv3x3_stats")),
+    "v2": Kernel(build.CSRC / "conv3x3_stats_v2.cu", "V2_PHASES", "conv3x3_stats_v2",
+                 {k: _CONV_STATS_API[k] for k in ("launch", "nblk")},
+                 {"halo": 6, "weights": 5, "mma": 3},
+                 {"fine_l2": (1, 32, 128, 128), "fine_l3": (1, 16, 256, 256),
+                  "128^3 32->32": (2, 128, 32, 32)}, partial(_dchw_launcher, "conv3x3_stats_v2")),
 }
 SOURCE = KERNELS["v1"].source
 ALL = 7

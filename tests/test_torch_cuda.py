@@ -317,20 +317,20 @@ _V2M_TILE_SHAPES = [
 ]
 
 
-def _v2m_digests(shape, device):
-    """sha256 of y's bytes, and of sums' then sqs' bytes, of the v2m kernel
-    from numpy inputs (seed 33) at (D, C, H, W, Cout), B = 1."""
+def _stats_digests(shape, device, version="v2m"):
+    """sha256 of y's bytes, and of sums' then sqs' bytes, of the kernel of
+    ``version`` from numpy inputs (seed 33) at (D, C, H, W, Cout), B = 1."""
     import hashlib
 
     D, C, H, W, Cout = shape
     x, k = _inputs((1, D, C, H, W), C, Cout, 33, device)
-    y, s, q = _own_sums(x, k, "v2m")
+    y, s, q = _own_sums(x, k, version)
     y_bytes = y.cpu().view(torch.int16).numpy().tobytes()
     m_bytes = s.cpu().numpy().tobytes() + q.cpu().numpy().tobytes()
     return hashlib.sha256(y_bytes).hexdigest(), hashlib.sha256(m_bytes).hexdigest()
 
 
-# Digests (``_v2m_digests``) recorded from the kernel that staged 8 x 32 x 32
+# Digests (``_stats_digests``) recorded from the kernel that staged 8 x 32 x 32
 # tiles synchronously, before the tiles followed W and Cout_pad and the kd
 # planes went through a cp.async ring, on an NVIDIA H100 80GB HBM3: y, sums
 # and sqs at every shape.
@@ -367,7 +367,7 @@ _V2M_DIGESTS = {
 
 @pytest.mark.parametrize("shape", _V2M_TILE_SHAPES)
 def test_conv3x3_stats_keeps_its_recorded_bits(cuda, shape):
-    assert _v2m_digests(shape, cuda) == _V2M_DIGESTS[shape]
+    assert _stats_digests(shape, cuda) == _V2M_DIGESTS[shape]
 
 
 @pytest.mark.parametrize("shape", _V2M_TILE_SHAPES)
@@ -396,6 +396,95 @@ def test_conv3x3_stats_nblk_keeps_the_8_by_32_slots(cuda):
     for D, H, W in ((4, 13, 8), (4, 13, 16), (4, 13, 17), (4, 12, 128), (3, 8, 8), (1, 1, 1),
                     (32, 32, 32), (16, 16, 16), (3, 35, 70)):
         assert lib.conv3x3_stats_nblk(D, H, W) == D * -(-H // 8) * -(-W // 32), (D, H, W)
+
+
+# The v2 kernel's tile follows W: 8 rows x 32 columns x 32 channels where
+# W > 16, 16 x 16 x 32 where W <= 16; (D, C, H, W, Cout) at B = 1.
+_V2_TILE_SHAPES = [
+    (4, 24, 13, 128, 32),     # 8 x 32, 16-byte copies; H = 13: a ragged row tile
+    (3, 40, 9, 33, 80),       # 8 x 32 at Cout_pad 96; W = 33: element loads, a
+                              # one-column second tile; Cin % 16 = 8
+    (4, 128, 12, 32, 128),    # 8 x 32, four output-channel tiles (fine_l2's widths)
+    (4, 64, 13, 17, 64),      # 8 x 32 at W = 17: element loads, 15 padded columns
+    (2, 1, 10, 40, 24),       # 8 x 32, Cin 1 (K padded to 16), Cout 24
+    (2, 256, 16, 16, 256),    # 16 x 16 at W = 16 (fine_l3's widths)
+    (4, 64, 12, 16, 64),      # 16 x 16, H = 12: the tile's second moment slot is partial
+    (3, 320, 8, 8, 320),      # 16 x 16 at H = 8: no second moment slot; W = 8
+    (5, 128, 13, 12, 80),     # 16 x 16 at W = 12 (element loads), Cout_pad 96
+    (1, 16, 1, 1, 32),        # one voxel
+]
+
+
+# Digests (``_stats_digests``) recorded from the kernel that staged a
+# 32-column slab and its two W-shifted copies synchronously, before the
+# kernel took row 1's tiles and three transposed kd planes, on an NVIDIA
+# H100 80GB HBM3: y, sums and sqs at every shape.
+_V2_DIGESTS = {
+    (4, 24, 13, 128, 32): (
+        "88758a8ad31fcf7b06cb3d0d6072803908d419bf495f6a770c6e5ed06483f2fb",
+        "c9fba1a1a412edfb94eab5870db60f5620e5cdac028a7fc7783112437d4dbe4d"),
+    (3, 40, 9, 33, 80): (
+        "855ffa1cf4334b5b123e8f9d6cc6cc4054f05368845bdfcbdbd71d1154ca1652",
+        "d81aedbab50c4258b8c4b3abcc92a62950fdf06f80798d44cecafab793a3f665"),
+    (4, 128, 12, 32, 128): (
+        "5635bb52e6641a3b8d94487ab42e32106e56f7d3718a712a4107202c4e108996",
+        "361bd3fbe7396761a80b398db5286ad1ff8e432fa4ab2bbbf16a609b64390b79"),
+    (4, 64, 13, 17, 64): (
+        "a9fd495d8f8a65001ee7e1a266e7509d40fff6cfc80cd11e52cf6fa336842d98",
+        "5c972a017b13afbc176ecd3cc9840dc2008c1fb422883e2c00e3f8e0e39b178f"),
+    (2, 1, 10, 40, 24): (
+        "c79ed6f0efc287100ec3dcf009a0c130c524e397b7a7db0d28e42efdf79b0125",
+        "02cfb858376d7fa8c0f3c85d7c8d90d088dd428855067fd4f67930443d20e2b0"),
+    (2, 256, 16, 16, 256): (
+        "2ddf51959fefe47c8f461a2842c807acf4febc002bbe550ba6230f83c2267d84",
+        "c27e6456b3df37e3c03824cc661139ff3746a979146497b71e98e0f7201b8592"),
+    (4, 64, 12, 16, 64): (
+        "148282362de4e7ba25ee2f5c0314b625ac110ffad0a3b17697a606ec9efa8914",
+        "ddeda695367cb94615e526f3a4cedae53ae68790b026a8e15539e07b51a5e938"),
+    (3, 320, 8, 8, 320): (
+        "9be42b437ea4c192786431065c2326e8fac655191b8b7bbcb2f0ba57fa9dd36c",
+        "d8d343816b8fd9234d90fafcdd4188063247e7dba931a6329a44bb443b1e7ddc"),
+    (5, 128, 13, 12, 80): (
+        "420ee3dc374616c157f05e47064063afe5b9dbb81b644e802acd985caf26bb91",
+        "c679573b1537db27e88c32ee9173b16dc1c3549d8079e7ea6de67aa6cbf1fc2a"),
+    (1, 16, 1, 1, 32): (
+        "7e54204c62ce1a97442e1f9017bc335f5d510a900f1cd61b67a81116f95bd336",
+        "d101c2d6c26cb744306c2e5e4dd185355c8c2c58d5547e0e9693efc7b10400ea"),
+}
+
+
+@pytest.mark.parametrize("shape", _V2_TILE_SHAPES)
+def test_conv3x3_stats_v2_keeps_its_recorded_bits(cuda, shape):
+    assert _stats_digests(shape, cuda, "v2") == _V2_DIGESTS[shape]
+
+
+@pytest.mark.parametrize("shape", _V2_TILE_SHAPES)
+def test_conv3x3_stats_v2_tiles_match_plain_and_keep_bits_at_an_odd_offset(cuda, shape):
+    """Each tile and instance against the plain version, and x one element
+    past a 16-byte boundary (the element-load instance) bit-equal to the
+    aligned run: y, sums and sqs."""
+    D, C, H, W, Cout = shape
+    x, k = _inputs((1, D, C, H, W), C, Cout, 34, cuda)
+    aligned = _own_sums(x, k, "v2")
+    got = _own_sums(_at_odd_offset(x), k, "v2")
+    torch.cuda.synchronize()
+    for u, v in zip(got, aligned):
+        assert torch.equal(u, v)
+    conv, plain = _variant("v2")
+    assert_conv_stats_close(conv(x, k, pack_weight(k)), plain(x, k))
+
+
+def test_conv3x3_stats_v2_nblk_and_cout_tile_are_unchanged(cuda):
+    """One moment slot per (d, 8-row tile, 32-column tile) whatever the
+    tile, and weights packed to a multiple of 32 output channels
+    (``launch_conv_stats`` sizes the scratch and the packing from them)."""
+    from runet_tpu_torch.kernels.conv_common import _CONV_STATS_API, _library
+
+    lib = _library(fused_block.V2_SOURCE, _CONV_STATS_API)
+    assert lib.conv3x3_stats_v2_cout_tile() == 32
+    for D, H, W in ((4, 13, 8), (4, 13, 16), (4, 13, 17), (4, 12, 128), (3, 8, 8), (1, 1, 1),
+                    (32, 32, 32), (16, 16, 16), (3, 35, 70)):
+        assert lib.conv3x3_stats_v2_nblk(D, H, W) == D * -(-H // 8) * -(-W // 32), (D, H, W)
 
 
 def test_conv3x3_stats_v1_is_deterministic_across_4_row_tile_seams(cuda):

@@ -104,6 +104,34 @@ def test_chip_smoke_launch_shapes_records_every_kernel_module(monkeypatch):
     assert all(getattr(m, attr) is stub for m, attr in attrs)
 
 
+@pytest.mark.parametrize("name", ["conv3x3_stats", "conv3x3_stats_v2"])
+def test_chip_smoke_kernel_lines_split_rows_1_and_5_by_shape_class(name):
+    """The ``kernels`` entries of rows 1 and 5 carry their main-path sums by
+    shape class (``ms_by_class``), without the kernel bench's shapes and the
+    untimed tile cases; the other rows carry none."""
+    import chip_smoke
+
+    def case(path, x_shape, ms, launches=1):
+        return {"path": path, "x_shape": list(x_shape), "cout": 32, "launches": launches,
+                "reused": False, "max_abs_err": 0.01, "rel_err": 1e-4, "ms": ms,
+                "plain_ms": 10 * ms, "library_ms": 2 * ms, "bound_ms": ms / 4,
+                "bound_by": "operations", "element_ms": ms}
+
+    cases = [case("serve_renal", (1, 12, 320, 6, 10), 1.0),
+             case("train_renal", (2, 32, 128, 32, 32), 2.0),
+             case("train_renal", (2, 128, 32, 128, 128), 4.0),
+             case("kernel_bench", (1, 32, 128, 32, 32), 8.0),
+             {"path": "tiles", "x_shape": [1, 4, 24, 13, 128], "cout": 32, "launches": 0,
+              "reused": False, "max_abs_err": 0.02, "rel_err": 1e-4}]
+    measured = {name: cases, "conv3x3_dw": [case("train", (2, 128, 32, 128, 128), 3.0)]}
+    lines = {k["name"]: k for k in chip_smoke.kernel_lines(measured, {"serve": {name: 5}})}
+    assert lines[name]["ms_by_class"] == {
+        "deep": {"shapes": 2, "ms": 3.0, "library_ms": 6.0, "bound_ms": 0.75},
+        "narrow": {"shapes": 1, "ms": 1.0, "library_ms": 2.0, "bound_ms": 0.25},
+        "rest": {"shapes": 1, "ms": 4.0, "library_ms": 8.0, "bound_ms": 1.0}}
+    assert lines[name]["ms"] == 15.0 and lines[name]["max_abs_err"] == 0.02
+    assert lines[name]["launches"] == 5 and "ms_by_class" not in lines["conv3x3_dw"]
+
 @pytest.mark.parametrize("iters,reps", [(30, 3), (4, 1)])
 def test_chip_smoke_replay_counting_adds_the_graph_replays(monkeypatch, iters, reps):
     """A step that launches two stats kernels, timed by a stand-in with
@@ -262,6 +290,30 @@ def test_phase_probe_v2m_exits_nonzero_without_cuda(no_cuda, tmp_path):
     assert phase_probe.main(["--kernel", "v2m", "--out", str(out)]) != 0
     assert not out.exists()
 
+
+def test_phase_probe_v2_defines_its_mask_and_includes_the_source(tmp_path):
+    from runet_tpu_torch.kernels import build
+    from runet_tpu_torch.utils import phase_probe
+
+    src = tmp_path / "k.cu"
+    text = phase_probe.probe_source(src, 3, "V2_PHASES")
+    assert text.splitlines() == ["#define V2_PHASES 3", f'#include "{src.resolve()}"']
+    v2 = phase_probe.KERNELS["v2"]
+    assert v2.macro == "V2_PHASES" and v2.source.name == "conv3x3_stats_v2.cu"
+    assert v2.source.exists() and '#include "conv3x3_stats_v2.cuh"' in v2.source.read_text()
+    assert "#ifndef V2_PHASES" in (build.CSRC / "conv3x3_stats_v2.cuh").read_text()
+    assert v2.without == {"halo": 6, "weights": 5, "mma": 3}
+    assert v2.geometries == {"fine_l2": (1, 32, 128, 128), "fine_l3": (1, 16, 256, 256),
+                             "128^3 32->32": (2, 128, 32, 32)}
+    assert set(v2.api) == {"launch", "nblk"} and v2.prefix == "conv3x3_stats_v2"
+
+
+def test_phase_probe_v2_exits_nonzero_without_cuda(no_cuda, tmp_path):
+    from runet_tpu_torch.utils import phase_probe
+
+    out = tmp_path / "phases.json"
+    assert phase_probe.main(["--kernel", "v2", "--out", str(out)]) != 0
+    assert not out.exists()
 
 def test_bit_compare_reads_the_kernel_lines_of_a_smoke_log():
     from runet_tpu_torch.utils import bit_compare
