@@ -84,11 +84,12 @@ Phases (any failure exits non-zero; nothing is caught and printed over):
    pair; never called by the port; for the "v1" kernel on its own (B, D,
    H, C, W) layout, the permutes to and from cuDNN's layout included; for
    the instance-norm stats kernel ``torch.var_mean`` over the same
-   (sample, channel) groups). At every shape of the three stride-1
-   kernels ("v2m", "v2", and "v1" with its 4-row x 32-column tiles, built
-   one kd plane at a time) the kernel also runs on x at an odd element
-   offset, its element-load instance, which must give the aligned run's y,
-   sums and sqs bit for bit (``element_ms`` times it); at every shape of
+   (sample, channel) groups). At every shape of the four conv + moments
+   kernels of the main paths ("v2m", "v2", "v1" with its 4-row x 32-column
+   tiles, built one kd plane at a time, and the stride-2 kernel) the kernel
+   also runs on x at an odd element offset, its element-load instance,
+   which must give the aligned run's y, sums and sqs bit for bit
+   (``element_ms`` times it); at every shape of
    the stride-1 weight-gradient kernel (two-stage cp.async ring) x, and
    separately g, at an odd offset must give the aligned run's dw bit for
    bit (``element_ms`` times the odd x); at every shape of the attic NDHWC
@@ -109,11 +110,13 @@ Phases (any failure exits non-zero; nothing is caught and printed over):
    16 x 16 x 32 at H = 16, 12 and 8 and W = 12, one voxel) and row 5 (v2)
    likewise (``V2_TILE_CASES``: 8 x 32 x 32 with and without 16-byte
    copies, at Cout_pad 96, Cout 128, W = 17 and Cin 1, 16 x 16 x 32 at H =
-   16, 12 and 8 and W = 12, one voxel), x also at an odd offset, bits
-   equal. Then the gradient of the
-   attic conv's autograd Function (dx through the kernel, dw by the
-   framework in f32) at two small shapes against autograd through
-   ``F.conv3d`` in true f32.
+   16, 12 and 8 and W = 12, one voxel) and row 2 (stride 2) likewise
+   (``S2_TILE_CASES``: 4 x 32 x 64 at Wo = 64 and 18, 4 x 32 x 32 at Cin 1
+   and Cout_pad 96, 8 x 16 x 64 at Ho = 5 and 8, Cout 320 and W = 20, 8 x
+   16 x 32 at Ho = 9 and D = 2, one output voxel), x also at an odd offset,
+   bits equal. Then the gradient of the attic conv's autograd Function (dx
+   through the kernel, dw by the framework in f32) at two small shapes
+   against autograd through ``F.conv3d`` in true f32.
 
 Tolerances of kernel vs plain. Forward: both accumulate in f32 and round to
 bf16 in different orders, so y may differ by one bf16 ulp (2^-7 relative)
@@ -873,8 +876,8 @@ def _stats_case(mod, x_shape, cout, gen, dev, version="v2m"):
     with torch.no_grad():
         max_err, rel = _check(wrap(x, k, packed), plain(x, k))
         ms = cuda_ms(lambda: wrap(x, k, packed), reps=10)
-        if not stride2:
-            extra["element_ms"] = _element_loads_case(mod, x, k, packed, version)
+        extra["element_ms"] = _element_loads_case(mod, x, k, packed,
+                                                  "s2" if stride2 else version)
         plain_ms = cuda_ms(lambda: plain(x, k), reps=3)
         # Library yardstick: cuDNN bf16 conv in its own NCDHW layout + sums
         # (for the v1 kernel, from and back to the layout the kernel takes).
@@ -913,19 +916,28 @@ def _at_odd_offset(t):
     return view
 
 
+def _own_sums(mod, version):
+    """(x, k, packed) -> the kernel's own (y, sums, sqs) of ``version``:
+    "v2m", "v2" or "v1" of ``fused_block``, or "s2", the stride-2 kernel."""
+    if version == "s2":
+        return mod._conv3x3_s2_sums
+    return lambda x, k, packed: mod._conv3x3_sums(x, k, packed, version)
+
+
 def _element_loads_case(mod, x, k, packed, version) -> float:
-    """The element-load instance of the stride-1 kernel of ``version``
-    ("v2m", "v2" or "v1"): x at an odd offset must give the aligned run's y,
-    sums and sqs bit for bit (where W % 8 != 0 both runs take element
-    loads). Returns its time."""
+    """The element-load instance of the conv + moments kernel of
+    ``version`` ("v2m", "v2", "v1" or "s2"): x at an odd offset must give
+    the aligned run's y, sums and sqs bit for bit (where W % 8 != 0 both
+    runs take element loads). Returns its time."""
+    sums = _own_sums(mod, version)
     xo = _at_odd_offset(x)
-    want = mod._conv3x3_sums(x, k, packed, version)
-    got = mod._conv3x3_sums(xo, k, packed, version)
+    want = sums(x, k, packed)
+    got = sums(xo, k, packed)
     for name, u, v in zip(("y", "sums", "sqs"), got, want):
         if not torch.equal(u, v):
             raise AssertionError(f"{version} at x {tuple(x.shape)}: {name} at an odd offset "
                                  f"differs from the aligned run")
-    return cuda_ms(lambda: mod._conv3x3_sums(xo, k, packed, version), reps=10)
+    return cuda_ms(lambda: sums(xo, k, packed), reps=10)
 
 
 def _dw_case(mod, x_shape, cout, gen, dev):
@@ -1099,6 +1111,15 @@ V2_TILE_CASES = [("Wide32", (4, 24, 13, 128), 32), ("Wide32 Cout_pad 96", (3, 40
                  ("Wide32 Cin 1", (2, 1, 10, 40), 24), ("Narrow", (2, 256, 16, 16), 256),
                  ("Narrow H 12", (4, 64, 12, 16), 64), ("Narrow H 8", (3, 320, 8, 8), 320),
                  ("Narrow W 12", (5, 128, 13, 12), 80), ("one voxel", (1, 16, 1, 1), 32)]
+# Row 2 (stride 2) likewise, (D, C, H, W) of the INPUT: its tile follows Wo
+# and Cout_pad (4 x 32 or 8 x 16 output rows x columns, by 64 or 32
+# channels), x takes cp.async copies where W % 8 == 0.
+S2_TILE_CASES = [("Narrow64 Ho 5", (4, 32, 10, 32), 64), ("Wide64 Wo 18", (4, 24, 8, 36), 48),
+                 ("Narrow32 Ho 9 D 2", (2, 64, 18, 16), 96),
+                 ("Narrow64 Cout 320", (2, 256, 16, 16), 320),
+                 ("Wide64 two column tiles", (4, 32, 16, 128), 64),
+                 ("Wide32 Cin 1", (4, 1, 12, 72), 32), ("Wide32 Cout_pad 96", (2, 40, 10, 66), 96),
+                 ("Narrow64 W 20", (4, 256, 12, 20), 320), ("one voxel", (2, 16, 2, 2), 32)]
 ATTIC_NORM_CASES = [("deep", (1, 8, 8, 8, 320), torch.bfloat16),
                     ("odd", (1, 3, 5, 7, 20), torch.bfloat16),
                     ("odd f32", (1, 3, 5, 7, 20), torch.float32)]
@@ -1277,24 +1298,32 @@ def _attic_grad_check(shape, cout, gen, dev) -> tuple[float, float]:
 
 
 def _v2m_tile_case(x_shape, cout, gen, dev, version: str = "v2m") -> dict:
-    """Row 1 (``version`` "v2": row 5) against its plain version on random
-    inputs, untimed; x at an odd offset (the element-load instance) must
-    give the aligned run's y, sums and sqs bit for bit."""
-    from runet_tpu_torch.kernels import fused_block
+    """Row 1 (``version`` "v2": row 5, "s2": row 2) against its plain
+    version on random inputs, untimed; x at an odd offset (the element-load
+    instance) must give the aligned run's y, sums and sqs bit for bit."""
+    from runet_tpu_torch.kernels import fused_block, strided_conv
     from runet_tpu_torch.kernels.conv_common import pack_weight
 
-    plain = fused_block.conv3x3_stats_v2_plain if version == "v2" \
-        else fused_block.conv3x3_stats_plain
+    if version == "s2":
+        mod, conv, plain = (strided_conv, strided_conv.conv_s2_stats_dchw_batch,
+                            strided_conv.conv3x3_s2_stats_plain)
+    else:
+        mod = fused_block
+        plain = fused_block.conv3x3_stats_v2_plain if version == "v2" \
+            else fused_block.conv3x3_stats_plain
+
+        def conv(x, k, packed):
+            return fused_block.conv_in_stats_dchw_batch(x, k, packed, version)
+    sums = _own_sums(mod, version)
     C = x_shape[2]
     x = torch.randn(x_shape, generator=gen, device=dev).to(torch.bfloat16)
     k = (torch.randn((3, 3, 3, C, cout), generator=gen, device=dev) / math.sqrt(27 * C)
          ).to(torch.bfloat16)
     packed = pack_weight(k)
     with torch.no_grad():
-        max_err, rel = _check(fused_block.conv_in_stats_dchw_batch(x, k, packed, version),
-                              plain(x, k))
-        want = fused_block._conv3x3_sums(x, k, packed, version)
-        got = fused_block._conv3x3_sums(_at_odd_offset(x), k, packed, version)
+        max_err, rel = _check(conv(x, k, packed), plain(x, k))
+        want = sums(x, k, packed)
+        got = sums(_at_odd_offset(x), k, packed)
     for name, u, v in zip(("y", "sums", "sqs"), got, want):
         if not torch.equal(u, v):
             raise AssertionError(f"{version} at x {tuple(x_shape)}->{cout}: {name} at an odd "
@@ -1305,11 +1334,12 @@ def _v2m_tile_case(x_shape, cout, gen, dev, version: str = "v2m") -> dict:
 def phase_attic(dev) -> dict:
     """The four attic kernels against their plain versions at the shapes
     the kernel bench does not launch (odd shapes, the deepest level's norm,
-    f32), untimed; rows 1 and 5 at one shape per tile, instance and edge
-    (``V2M_TILE_CASES``, ``V2_TILE_CASES``), untimed; the attic conv's
+    f32), untimed; rows 1, 5 and 2 at one shape per tile, instance and edge
+    (``V2M_TILE_CASES``, ``V2_TILE_CASES``, ``S2_TILE_CASES``), untimed; the
+    attic conv's
     gradient. Returns {kernel: [case, ...]} in ``phase_kernels``' form,
     without times."""
-    from runet_tpu_torch.kernels import fused_block
+    from runet_tpu_torch.kernels import fused_block, strided_conv
     from runet_tpu_torch.kernels.attic import conv3d, conv_v3_deep, fused_norm
 
     gen = torch.Generator(device=dev).manual_seed(4)
@@ -1331,7 +1361,8 @@ def phase_attic(dev) -> dict:
                               "launches": 0, "reused": False, "tag": tag,
                               "dtype": str(dtype).removeprefix("torch."), **case})
     for version, source, cases in (("v2m", fused_block.SOURCE, V2M_TILE_CASES),
-                                   ("v2", fused_block.V2_SOURCE, V2_TILE_CASES)):
+                                   ("v2", fused_block.V2_SOURCE, V2_TILE_CASES),
+                                   ("s2", strided_conv.SOURCE, S2_TILE_CASES)):
         for tag, (D, C, H, W), cout in cases:
             case = _v2m_tile_case((1, D, C, H, W), cout, gen, dev, version)
             out.setdefault(source, []).append(
@@ -1434,12 +1465,15 @@ def kernel_lines(measured, path_counts):
     pass alone; the stats pass has ``torch.var_mean``); the apply kernel's
     line carries the pair's times (``pair_ms``, ``pair_plain_ms``,
     ``pair_library_ms``: ``F.instance_norm`` + ``F.leaky_relu``), and the
-    lines of the three stride-1 kernels (v2m, v2, v1) and of the stride-1
-    weight gradient the time of their element-load instance over the same
-    shapes (``element_ms``); the v2m and v2 lines their main-path sums by
-    shape class (``ms_by_class``); the v3 line carries its kernel's and its
+    lines of the four conv + moments kernels of the main paths (v2m, v2,
+    v1, stride 2) and of the stride-1 weight gradient the time of their
+    element-load instance over the same shapes (``element_ms``); the v2m,
+    v2 and stride-2 lines their main-path sums by shape class
+    (``ms_by_class``); the v3 line carries its kernel's and its
     library call's CUDA-graph times over the same shapes (``graph_ms``,
     ``graph_library_ms``)."""
+    classes = {"conv3x3_stats": _v2m_classes, "conv3x3_stats_v2": _v2m_classes,
+               "conv3x3_s2_stats": _s2_classes}
     replaces = {
         "conv3x3_stats": "runet_tpu/kernels/fused_block.py:639",
         "conv3x3_s2_stats": "runet_tpu/kernels/strided_conv.py:80",
@@ -1485,8 +1519,8 @@ def kernel_lines(measured, path_counts):
                                  for p in sorted({c["path"] for c in cs})},
             "path_ms": {p: sum(c["ms"] * c["launches"] for c in every if c["path"] == p)
                         for p in launched},
-            **({"ms_by_class": _v2m_classes([c for c in cs if c["path"] != "kernel_bench"])}
-               if name in ("conv3x3_stats", "conv3x3_stats_v2") else {}),
+            **({"ms_by_class": classes[name]([c for c in cs if c["path"] != "kernel_bench"])}
+               if name in classes else {}),
         })
     return kernels
 
@@ -1501,6 +1535,18 @@ def _v2m_classes(cases) -> dict:
     out = {}
     for tag, member in classes.items():
         cs = [c for c in cases if member(c["x_shape"][2], c["x_shape"][4])]
+        out[tag] = {"shapes": len(cs), **{k: sum(c[k] for c in cs)
+                                          for k in ("ms", "library_ms", "bound_ms")}}
+    return out
+
+
+def _s2_classes(cases) -> dict:
+    """Row 2's timed main-path shapes by the tile they take: wide (output
+    Wo > 16) and narrow (Wo <= 16); shapes, ms, cuDNN + sums ms and bound
+    ms of each."""
+    out = {}
+    for tag, narrow in (("wide", False), ("narrow", True)):
+        cs = [c for c in cases if (c["x_shape"][4] // 2 <= 16) == narrow]
         out[tag] = {"shapes": len(cs), **{k: sum(c[k] for c in cs)
                                           for k in ("ms", "library_ms", "bound_ms")}}
     return out

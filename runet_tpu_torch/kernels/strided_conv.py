@@ -6,15 +6,19 @@ reads input (2d+kd, 2h+kh, 2w+kw) and an index past the extent reads zero —
 XLA's asymmetric SAME padding (low 0, high 1) for even extents, NOT torch's
 symmetric ``padding=1``. Two CUDA kernels:
 
-- ``csrc/conv3x3_s2_stats.cu`` replaces the Pallas kernel
-  ``_conv_s2_kernel``: the bf16 output with f32 moments of the rounded
-  output. The Pallas kernel needed 0/1 selection matmuls to decimate W
-  because TPU lanes cannot be strided; the GPU kernel addresses the strided
-  element inside the same mma.sync implicit GEMM as the stride-1 kernel,
-  with the input halo staged in 16-byte chunks along W and transposed to
-  channel-innermost in registers. Its least time on the H100 is the HBM
-  bytes of reading its input once (each output reads 8x its volume); the
-  kernel is still several times slower than that (PERF.md §6).
+- ``csrc/conv3x3_s2_stats.cu`` (+ ``conv3x3_s2_stats.cuh``) replaces the
+  Pallas kernel ``_conv_s2_kernel``: the bf16 output with f32 moments of the
+  rounded output. The Pallas kernel needed 0/1 selection matmuls to
+  decimate W because TPU lanes cannot be strided; the GPU kernel is an
+  mma.sync implicit GEMM whose tile follows the output width and Cout (4
+  rows x 32 columns, or 8 x 16 where Wo <= 16, by 64 output channels where
+  the packed Cout allows, else 32), fed one (16-channel chunk, kd plane)
+  phase at a time through a two-stage cp.async ring. Each raw plane is
+  transposed in shared memory to channel-innermost with its even and odd
+  columns apart, so a tap's strided A rows are consecutive and load by
+  ldmatrix. Its least time on the H100 is the HBM bytes of reading its
+  input once (each output reads 8x its volume); the kernel is still
+  several times slower than that (PERF.md §6).
 - ``csrc/conv3x3_s2_dw.cu`` replaces ``_s2_dw_kernel``, the weight
   gradient: the stride-1 dw's implicit GEMM with the input halo staged in
   16-byte chunks as separate even and odd columns, one launch for the whole

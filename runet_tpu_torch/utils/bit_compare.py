@@ -1,19 +1,21 @@
-"""A stride-1 conv + moments kernel of another checkout against this tree's.
+"""A conv + moments kernel of another checkout against this tree's.
 
     python -m runet_tpu_torch.utils.bit_compare OTHER_CU [--log SMOKE_LOG ...] [--out PATH]
 
-OTHER_CU is ``csrc/conv3x3_stats.cu`` or ``csrc/conv3x3_stats_v2.cu`` of
-another checkout (a parent unpacked with ``git archive``). Both libraries are
-built (the other one as a probe library, this tree's as the port builds it)
-and loaded into one process; at every shape both run on the same random
-inputs (``torch.Generator`` seed 5), through ``conv_common.launch_conv_stats``,
-with x aligned and at an odd element offset (the element-load instance). Each
-of the change's runs, and the other library's odd-offset run, must give the
-other library's aligned y, sums and sqs bit for bit (``torch.equal``). The
-shapes, (B, D, C, H, W, Cout) with x (B, D, C, H, W): ``DEFAULT_SHAPES``,
-and every ``[kernels] <name> ...`` line of the ``chip_smoke.py`` logs given
-with ``--log``, so a kernel change is held to its parent at every shape the
-main paths launched. Prints one JSON object with the card's name and power
+OTHER_CU is ``csrc/conv3x3_stats.cu``, ``csrc/conv3x3_stats_v2.cu`` or the
+stride-2 ``csrc/conv3x3_s2_stats.cu`` of another checkout (a parent unpacked
+with ``git archive``). Both libraries are built (the other one as a probe
+library, this tree's as the port builds it) and loaded into one process; at
+every shape both run on the same random inputs (``torch.Generator`` seed
+5), through ``conv_common.launch_conv_stats``, with x aligned and at an odd
+element offset (the element-load instance). Each of the change's runs, and
+the other library's odd-offset run, must give the other library's aligned
+y, sums and sqs bit for bit (``torch.equal``). The shapes, (B, D, C, H, W,
+Cout) with x (B, D, C, H, W): ``DEFAULT_SHAPES`` (for the stride-2 kernel
+``S2_DEFAULT_SHAPES``, even, its output extents half the input's), and every
+``[kernels] <name> ...`` line of the ``chip_smoke.py`` logs given with
+``--log``, so a kernel change is held to its parent at every shape the main
+paths launched. Prints one JSON object with the card's name and power
 limit, the count of shapes and the unequal ones (also written to ``--out``);
 exits 1 if any is unequal. Needs a GPU and nvcc.
 """
@@ -32,7 +34,7 @@ import torch
 from runet_tpu_torch.kernels import build, conv_common
 from runet_tpu_torch.utils.health import card_line
 
-KERNELS = ("conv3x3_stats", "conv3x3_stats_v2")
+KERNELS = ("conv3x3_stats", "conv3x3_stats_v2", "conv3x3_s2_stats")
 DEFAULT_SHAPES = [
     (2, 4, 32, 128, 128, 32), (2, 4, 64, 64, 64, 64), (2, 4, 128, 32, 32, 128),
     (2, 4, 256, 16, 16, 256), (2, 4, 320, 8, 8, 320), (1, 5, 1, 20, 128, 32),
@@ -40,6 +42,13 @@ DEFAULT_SHAPES = [
     (1, 3, 24, 11, 100, 64), (2, 5, 48, 7, 19, 24), (1, 3, 70, 3, 5, 40),
     (1, 2, 1, 8, 96, 32), (1, 4, 16, 8, 8, 32), (1, 3, 16, 33, 40, 96),
     (2, 3, 64, 17, 16, 64), (1, 6, 96, 18, 12, 192), (1, 2, 512, 4, 4, 64),
+]
+S2_DEFAULT_SHAPES = [
+    (2, 4, 32, 64, 64, 64), (1, 4, 64, 32, 32, 128), (2, 4, 128, 16, 16, 256),
+    (1, 4, 256, 8, 8, 320), (2, 4, 320, 8, 8, 320), (1, 2, 1, 20, 128, 32),
+    (2, 4, 24, 10, 36, 48), (1, 4, 48, 12, 20, 96), (1, 6, 40, 18, 66, 96),
+    (1, 2, 16, 2, 2, 32), (1, 4, 24, 16, 34, 24), (1, 2, 70, 6, 10, 40),
+    (1, 4, 256, 12, 20, 320), (2, 2, 64, 18, 16, 96),
 ]
 
 
@@ -84,7 +93,8 @@ def main(argv=None) -> int:
         return 1
     other = _other_library(args.other.resolve(), name)
     ours = conv_common._library(name, conv_common._CONV_STATS_API)
-    shapes = list(DEFAULT_SHAPES)
+    stride = 2 if name == "conv3x3_s2_stats" else 1
+    shapes = list(S2_DEFAULT_SHAPES if stride == 2 else DEFAULT_SHAPES)
     for log in args.log:
         shapes += logged_shapes(log.read_text(), name)
     shapes = list(dict.fromkeys(shapes))
@@ -92,8 +102,9 @@ def main(argv=None) -> int:
     def run(lib, x, k, packed):
         conv_common._bound[name] = lib
         try:
-            return conv_common.launch_conv_stats(name, x, packed, k.shape[4], x.shape[1:2]
-                                                 + x.shape[3:5])
+            B, D, C, H, W = x.shape
+            return conv_common.launch_conv_stats(name, x, packed, k.shape[4],
+                                                 (D // stride, H // stride, W // stride))
         finally:
             conv_common._bound[name] = ours
 

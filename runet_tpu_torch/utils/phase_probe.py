@@ -1,10 +1,11 @@
 """Per-phase times of the v1 conv kernel (``csrc/conv3x3_stats_v1.cu``), of
 the stride-1 weight-gradient kernel (``csrc/conv3x3_dw.cu``), of the attic
 NDHWC conv + moments (``csrc/conv3x3_ndhwc_stats.cu``), of the main-path
-v2m conv + moments (``csrc/conv3x3_stats.cu``) or of the v2 conv + moments
-(``csrc/conv3x3_stats_v2.cu``).
+v2m conv + moments (``csrc/conv3x3_stats.cu``), of the v2 conv + moments
+(``csrc/conv3x3_stats_v2.cu``) or of the stride-2 conv + moments
+(``csrc/conv3x3_s2_stats.cu``).
 
-    python -m runet_tpu_torch.utils.phase_probe [--kernel {v1,dw1,v3,v2m,v2}]
+    python -m runet_tpu_torch.utils.phase_probe [--kernel {v1,dw1,v3,v2m,v2,s2}]
         [--source PATH] [--out PATH]
 
 Each kernel guards its three phases with a compile-time mask, 7 when
@@ -14,8 +15,10 @@ staging, 2 the g staging, 4 the MMAs), ``V3_PHASES`` for v3 (in
 ``conv3x3_ndhwc_stats.cuh``: 1 the halo copies, 2 the weight copies, 4 the
 MMAs), ``V2M_PHASES`` for v2m (in ``conv3x3_stats.cuh``: 1 the halo copies
 and their transpose, 2 the weight copies, 4 the MMAs), ``V2_PHASES`` for v2
-(in ``conv3x3_stats_v2.cuh``: the same three phases). This builds the source
-(this tree's, or another checkout's with ``--source``) four times, as probe
+(in ``conv3x3_stats_v2.cuh``: the same three phases), ``S2_PHASES`` for s2
+(in ``conv3x3_s2_stats.cuh``: 1 the raw plane copies and their transpose, 2
+the weight copies, 4 the MMAs). This builds the source (this tree's, or
+another checkout's with ``--source``) four times, as probe
 libraries that ``#define`` the mask to 7, 6, 5 and 3 and then ``#include``
 the source, and times each library's launch entry with CUDA events on the
 same random inputs: for v1 ``conv3x3_stats_v1_launch`` (the conv kernel and
@@ -26,9 +29,12 @@ reduction) at B 2, 128³, 32→32; B 2, 32³, 128→128; B 2, 16³, 256→256; f
 the kernel bench's ``fine_l2`` (B 1, 32³, 128→128) and ``fine_l3`` (B 1,
 16³, 256→256); for v2m ``conv3x3_stats_launch`` (the conv kernel and its
 moment reduction) at the same two and at B 2, 128³, 32→32, for v2
-``conv3x3_stats_v2_launch`` at the same three. A phase's share is 1 −
-t(without it) / t(all). A build without a phase computes a wrong output:
-only its time is read. Prints one JSON object with the ms per mask, the
+``conv3x3_stats_v2_launch`` at the same three, for s2
+``conv3x3_s2_stats_launch`` at fine_kits' level-0, 2 and 3 down convs, x
+(2, 128, 32, 128, 128)→64, (2, 32, 128, 32, 32)→256 and (2, 16, 256, 16,
+16)→320, and at renal_anatomy's x (1, 24, 256, 12, 20)→320 (W = 20: element
+loads). A phase's share is 1 − t(without it) / t(all). A build without a
+phase computes a wrong output: only its time is read. Prints one JSON object with the ms per mask, the
 shares and the card's name and power limit (also written to ``--out``).
 Needs a GPU and nvcc.
 """
@@ -98,18 +104,20 @@ def _dw1_launcher(libs, shape, gen):
     return launch
 
 
-def _dchw_launcher(prefix, libs, shape, gen):
+def _conv_stats_launcher(prefix, libs, x_shape, cout, stride, gen):
     """A launch of one (B, D, C, H, W) conv + moments probe library, whose C
-    entries start with ``prefix``, at (B, edge, Cin, Cout)."""
-    B, e, cin, cout = shape
+    entries start with ``prefix``, at x ``x_shape`` -> ``cout`` with the
+    given conv stride (the output extents are the input's over it)."""
+    B, D, cin, H, W = x_shape
+    Do, Ho, Wo = D // stride, H // stride, W // stride
     dev = torch.device("cuda")
-    x = torch.randn((B, e, cin, e, e), generator=gen, device=dev).to(torch.bfloat16)
+    x = torch.randn(x_shape, generator=gen, device=dev).to(torch.bfloat16)
     k = (torch.randn((3, 3, 3, cin, cout), generator=gen, device=dev) / (27 * cin) ** 0.5
          ).to(torch.bfloat16)
     packed = pack_weight(k)
     cout_p, cin_p = packed.shape[1], packed.shape[2]
-    nblk = int(getattr(next(iter(libs.values())), f"{prefix}_nblk")(e, e, e))
-    y = torch.empty((B, e, cout, e, e), dtype=torch.bfloat16, device=dev)
+    nblk = int(getattr(next(iter(libs.values())), f"{prefix}_nblk")(Do, Ho, Wo))
+    y = torch.empty((B, Do, cout, Ho, Wo), dtype=torch.bfloat16, device=dev)
     psum = torch.empty((B, cout_p, nblk), dtype=torch.float32, device=dev)
     psq = torch.empty_like(psum)
     sums = torch.empty((B, cout), dtype=torch.float32, device=dev)
@@ -119,9 +127,22 @@ def _dchw_launcher(prefix, libs, shape, gen):
     def launch(lib):
         return getattr(lib, f"{prefix}_launch")(x.data_ptr(), packed.data_ptr(), y.data_ptr(),
                                                 psum.data_ptr(), psq.data_ptr(), sums.data_ptr(),
-                                                sqs.data_ptr(), B, e, cin, e, e, cout, cin_p,
+                                                sqs.data_ptr(), B, D, cin, H, W, cout, cin_p,
                                                 cout_p, stream)
     return launch
+
+
+def _dchw_launcher(prefix, libs, shape, gen):
+    """A launch of one stride-1 (B, D, C, H, W) conv + moments probe library
+    at (B, edge, Cin, Cout)."""
+    B, e, cin, cout = shape
+    return _conv_stats_launcher(prefix, libs, (B, e, cin, e, e), cout, 1, gen)
+
+
+def _s2_launcher(libs, shape, gen):
+    """A launch of one stride-2 probe library at x (B, D, Cin, H, W) -> Cout."""
+    *x_shape, cout = shape
+    return _conv_stats_launcher("conv3x3_s2_stats", libs, tuple(x_shape), cout, 2, gen)
 
 
 def _v3_launcher(libs, shape, gen):
@@ -156,7 +177,8 @@ class Kernel:
     prefix: str  # the C entries' common prefix
     api: dict  # {suffix: (argtypes, restype)} of the entries bound
     without: dict  # phase name -> the mask that leaves it out
-    geometries: dict  # name -> (B, edge of the cubic volume, Cin, Cout)
+    # name -> (B, edge of the cubic volume, Cin, Cout); for s2 x's (B, D, Cin, H, W) and Cout
+    geometries: dict
     launcher: object  # (libs, shape, generator) -> launch(lib) on fresh inputs
 
 
@@ -184,6 +206,12 @@ KERNELS = {
                  {"halo": 6, "weights": 5, "mma": 3},
                  {"fine_l2": (1, 32, 128, 128), "fine_l3": (1, 16, 256, 256),
                   "128^3 32->32": (2, 128, 32, 32)}, partial(_dchw_launcher, "conv3x3_stats_v2")),
+    "s2": Kernel(build.CSRC / "conv3x3_s2_stats.cu", "S2_PHASES", "conv3x3_s2_stats",
+                 {k: _CONV_STATS_API[k] for k in ("launch", "nblk")},
+                 {"halo": 6, "weights": 5, "mma": 3},
+                 {"down_l0": (2, 128, 32, 128, 128, 64), "down_l2": (2, 32, 128, 32, 32, 256),
+                  "down_l3": (2, 16, 256, 16, 16, 320), "renal W 20": (1, 24, 256, 12, 20, 320)},
+                 _s2_launcher),
 }
 SOURCE = KERNELS["v1"].source
 ALL = 7

@@ -218,11 +218,11 @@ def _at_odd_offset(t):
     return view
 
 
-# The stride-2 forward kernel stages each input line of a block (65
-# columns) as eight 8-column chunks of four channels each, transposed to
-# channel-innermost in registers: one 16-byte load per channel and chunk
-# where W % 8 == 0 and x is 16-byte aligned (eight element loads
-# otherwise), and the 65th column as one element per channel.
+# The stride-2 forward kernel copies each input line of a block as 8-column
+# chunks (one 16-byte cp.async per channel and chunk where W % 8 == 0 and x
+# is 16-byte aligned, element loads otherwise), the right halo chunk apart,
+# and transposes them in shared memory to channel-innermost, even and odd
+# columns apart.
 _S2_STATS_STAGING_SHAPES = [
     (1, 4, 16, 6, 8, 32),     # Wo = 4: only chunk 0 of each line is real
     (1, 4, 32, 10, 16, 64),   # Wo = 8: chunks 2-7 lie past W; ragged H (Ho = 5)
@@ -485,6 +485,113 @@ def test_conv3x3_stats_v2_nblk_and_cout_tile_are_unchanged(cuda):
     for D, H, W in ((4, 13, 8), (4, 13, 16), (4, 13, 17), (4, 12, 128), (3, 8, 8), (1, 1, 1),
                     (32, 32, 32), (16, 16, 16), (3, 35, 70)):
         assert lib.conv3x3_stats_v2_nblk(D, H, W) == D * -(-H // 8) * -(-W // 32), (D, H, W)
+
+
+# The stride-2 kernel's tile follows Wo and Cout_pad: 4 output rows x 32
+# columns where Wo > 16, 8 x 16 where Wo <= 16, by 64 output channels where
+# Cout_pad % 64 == 0, else 32; x takes cp.async copies where W % 8 == 0.
+# (D, C, H, W, Cout) of the INPUT at B = 1.
+_S2_TILE_SHAPES = [
+    (4, 32, 10, 32, 64),      # 8 x 16 x 64 at Wo = 16, 16-byte copies; Ho = 5: a partial
+                              # second moment slot
+    (4, 24, 8, 36, 48),       # 4 x 32 x 64 at Wo = 18 (Cout_pad 64): element loads, 14
+                              # padded columns; Cin 24
+    (2, 64, 18, 16, 96),      # 8 x 16 x 32 (Cout_pad 96); Ho = 9: the last tile has no
+                              # second slot; D = 2: kd = 2 reads only the pad
+    (2, 256, 16, 16, 320),    # 8 x 16 x 64, five Cout tiles; Ho = 8: both slots whole
+    (4, 32, 16, 128, 64),     # 4 x 32 x 64, two column tiles (level 0's widths)
+    (4, 1, 12, 72, 32),       # 4 x 32 x 32, Cin 1; Wo = 36: a second column tile of 4
+    (2, 40, 10, 66, 96),      # 4 x 32 x 32 at Cout_pad 96, element loads; Wo = 33: one
+                              # column past the first tile
+    (4, 256, 12, 20, 320),    # 8 x 16 x 64 at W = 20 (element loads; the renal down
+                              # conv's widths)
+    (2, 16, 2, 2, 32),        # one output voxel
+]
+
+
+def _s2_digests(shape, device):
+    """sha256 of y's bytes, and of sums' then sqs' bytes, of the stride-2
+    kernel from numpy inputs (seed 33) at INPUT (D, C, H, W) -> Cout, B = 1."""
+    import hashlib
+
+    D, C, H, W, Cout = shape
+    x, k = _inputs((1, D, C, H, W), C, Cout, 33, device)
+    y, s, q = strided_conv._conv3x3_s2_sums(x, k, None)
+    y_bytes = y.cpu().view(torch.int16).numpy().tobytes()
+    m_bytes = s.cpu().numpy().tobytes() + q.cpu().numpy().tobytes()
+    return hashlib.sha256(y_bytes).hexdigest(), hashlib.sha256(m_bytes).hexdigest()
+
+
+# Digests (``_s2_digests``) recorded from the kernel that staged 4 x 32 x 32
+# tiles synchronously, three kd planes and 27 taps a K-tile, before the
+# tiles followed Wo and Cout_pad and the kd planes went through a cp.async
+# ring, on an NVIDIA H100 80GB HBM3: y, sums and sqs at every shape.
+_S2_DIGESTS = {
+    (4, 32, 10, 32, 64): (
+        "6d2d64dcdac531c3fedd8a97c0ac28e6a32f3762ddf21eb15dc9a116299efb1e",
+        "c4cdcb522afedd5edaa2f3e5d3fe257da2cb283e97a7c91be0a243679f3dd448"),
+    (4, 24, 8, 36, 48): (
+        "ce296eee5599aff519d5fe4285b2ad65bec7fa354f896a0340abeff19a284450",
+        "03c1d7b82f66a7bf65350e69e04332acb683ddaa8ca77f9b0113740212906495"),
+    (2, 64, 18, 16, 96): (
+        "96923d5f2fcedb56677a55776f3928257108a02dbbea9feff49c8b8e66178a58",
+        "b175be7cde3a1373a9b823c167f6069188183a85e4bd098d10f9e80ec43673cc"),
+    (2, 256, 16, 16, 320): (
+        "e1b23c92ce26e055cc0e796d9cc6915bbac9b918fcd89e31c7ff91dc57ccf661",
+        "83c1ea1644d397f51d5925a0c52c28ac26508971b1a322e163693472c1e032d1"),
+    (4, 32, 16, 128, 64): (
+        "68447f7312e71b087750723f87dd9e081126bc19da2d8b481ef62a15c585e1dc",
+        "de4566e9fbbacb3c5e0751031bbea9cd66979494064597ff318429e3315cfc01"),
+    (4, 1, 12, 72, 32): (
+        "ecf118506a205e94e9a12354f7ea6e6b637f1e4d376119b8bf230f0aee4bb37f",
+        "8a77b9b19a84b079d926a3990bcdf6bc63e45f9c9aae866fd2f3159f3f4580d1"),
+    (2, 40, 10, 66, 96): (
+        "76f7d0f6e3792b2ed2ad54b4f6c007401395c717663f3421183dd8643389f5fc",
+        "98d24b33c39f2444373504e8dc7c8c15ae082f3810604a4e8a524ef66e4df25a"),
+    (4, 256, 12, 20, 320): (
+        "820c5e184e3b498afdafd0ffcae92aacb8362d8a31739f17ecc66e5e212b11f6",
+        "260cddd1117fc0c74c24ccc387ffb94a9e67d40b9e231f309e04e90d7af52b31"),
+    (2, 16, 2, 2, 32): (
+        "051483e9c3e214c4cfb8ea092c7cc6fdb4ca5daa961ad5380b421f24e550a35b",
+        "ed84a44402dccbcfd3e10c8974d22ffb364534991a4ac172d34d450b7f692637"),
+}
+
+
+@pytest.mark.parametrize("shape", _S2_TILE_SHAPES)
+def test_conv3x3_s2_stats_keeps_its_recorded_bits(cuda, shape):
+    assert _s2_digests(shape, cuda) == _S2_DIGESTS[shape]
+
+
+@pytest.mark.parametrize("shape", _S2_TILE_SHAPES)
+def test_conv3x3_s2_stats_tiles_match_plain_and_keep_bits_at_an_odd_offset(cuda, shape):
+    """Each tile and instance against the plain version, and x one element
+    past a 16-byte boundary (the element-load instance) bit-equal to the
+    aligned run: y, sums and sqs."""
+    D, C, H, W, Cout = shape
+    x, k = _inputs((1, D, C, H, W), C, Cout, 34, cuda)
+    packed = pack_weight(k)
+    aligned = strided_conv._conv3x3_s2_sums(x, k, packed)
+    got = strided_conv._conv3x3_s2_sums(_at_odd_offset(x), k, packed)
+    torch.cuda.synchronize()
+    for u, v in zip(got, aligned):
+        assert torch.equal(u, v)
+    assert_conv_stats_close(strided_conv.conv_s2_stats_dchw_batch(x, k, packed),
+                            strided_conv.conv3x3_s2_stats_plain(x, k))
+
+
+def test_conv3x3_s2_stats_nblk_and_cout_tile_are_unchanged(cuda):
+    """One moment slot per (d, 4-row tile, 32-column tile) of the OUTPUT
+    whatever the tile, and weights packed to a multiple of 32 output
+    channels (``launch_conv_stats`` sizes the scratch and the packing from
+    them)."""
+    from runet_tpu_torch.kernels.conv_common import _CONV_STATS_API, _library
+
+    lib = _library(strided_conv.SOURCE, _CONV_STATS_API)
+    assert lib.conv3x3_s2_stats_cout_tile() == 32
+    for Do, Ho, Wo in ((2, 5, 16), (1, 9, 8), (2, 4, 18), (1, 8, 8), (1, 1, 1), (2, 6, 10),
+                       (64, 64, 64), (8, 8, 8), (3, 35, 70)):
+        assert lib.conv3x3_s2_stats_nblk(Do, Ho, Wo) == Do * -(-Ho // 4) * -(-Wo // 32), \
+            (Do, Ho, Wo)
 
 
 def test_conv3x3_stats_v1_is_deterministic_across_4_row_tile_seams(cuda):

@@ -132,6 +132,40 @@ def test_chip_smoke_kernel_lines_split_rows_1_and_5_by_shape_class(name):
     assert lines[name]["ms"] == 15.0 and lines[name]["max_abs_err"] == 0.02
     assert lines[name]["launches"] == 5 and "ms_by_class" not in lines["conv3x3_dw"]
 
+def test_chip_smoke_kernel_lines_split_row_2_by_output_width():
+    """Row 2's ``kernels`` entry carries its main-path sums by the tile its
+    shapes take (wide: Wo > 16, narrow: Wo <= 16, Wo = W / 2 of the INPUT
+    shape), without the kernel bench's shapes and the untimed tile cases,
+    beside rows 1 and 5's classes."""
+    import chip_smoke
+
+    def case(path, x_shape, ms):
+        return {"path": path, "x_shape": list(x_shape), "cout": 64, "launches": 2,
+                "reused": False, "max_abs_err": 0.01, "rel_err": 1e-4, "ms": ms,
+                "plain_ms": 10 * ms, "library_ms": 3 * ms, "bound_ms": ms / 8,
+                "bound_by": "bytes", "element_ms": ms}
+
+    cases = [case("serve", (1, 64, 24, 256, 256), 4.0),
+             case("train", (2, 128, 32, 128, 128), 2.0),
+             case("train", (2, 32, 128, 34, 34), 1.0),      # Wo = 17: wide
+             case("serve_renal", (1, 24, 256, 12, 20), 0.5),
+             case("train", (2, 16, 256, 32, 32), 0.25),     # Wo = 16: narrow
+             case("kernel_bench", (1, 16, 256, 16, 16), 8.0),
+             {"path": "tiles", "x_shape": [1, 4, 32, 10, 32], "cout": 64, "launches": 0,
+              "reused": False, "max_abs_err": 0.03, "rel_err": 1e-4}]
+    measured = {"conv3x3_s2_stats": cases,
+                "conv3x3_stats": [case("serve", (1, 12, 320, 6, 10), 1.0)],
+                "conv3x3_s2_dw": [case("train", (2, 128, 32, 128, 128), 3.0)]}
+    lines = {k["name"]: k for k in chip_smoke.kernel_lines(measured, {"train": {}})}
+    row2 = lines["conv3x3_s2_stats"]
+    assert row2["ms_by_class"] == {
+        "wide": {"shapes": 3, "ms": 7.0, "library_ms": 21.0, "bound_ms": 0.875},
+        "narrow": {"shapes": 2, "ms": 0.75, "library_ms": 2.25, "bound_ms": 0.09375}}
+    assert row2["ms"] == 15.75 and row2["element_ms"] == 15.75 and row2["max_abs_err"] == 0.03
+    assert set(lines["conv3x3_stats"]["ms_by_class"]) == {"deep", "narrow", "rest"}
+    assert "ms_by_class" not in lines["conv3x3_s2_dw"]
+
+
 @pytest.mark.parametrize("iters,reps", [(30, 3), (4, 1)])
 def test_chip_smoke_replay_counting_adds_the_graph_replays(monkeypatch, iters, reps):
     """A step that launches two stats kernels, timed by a stand-in with
@@ -315,6 +349,34 @@ def test_phase_probe_v2_exits_nonzero_without_cuda(no_cuda, tmp_path):
     assert phase_probe.main(["--kernel", "v2", "--out", str(out)]) != 0
     assert not out.exists()
 
+def test_phase_probe_s2_defines_its_mask_and_includes_the_source(tmp_path):
+    from runet_tpu_torch.kernels import build
+    from runet_tpu_torch.utils import phase_probe
+
+    src = tmp_path / "k.cu"
+    text = phase_probe.probe_source(src, 6, "S2_PHASES")
+    assert text.splitlines() == ["#define S2_PHASES 6", f'#include "{src.resolve()}"']
+    s2 = phase_probe.KERNELS["s2"]
+    assert s2.macro == "S2_PHASES" and s2.source.name == "conv3x3_s2_stats.cu"
+    assert s2.source.exists() and '#include "conv3x3_s2_stats.cuh"' in s2.source.read_text()
+    assert "#ifndef S2_PHASES" in (build.CSRC / "conv3x3_s2_stats.cuh").read_text()
+    assert s2.without == {"halo": 6, "weights": 5, "mma": 3}
+    assert s2.geometries == {"down_l0": (2, 128, 32, 128, 128, 64),
+                             "down_l2": (2, 32, 128, 32, 32, 256),
+                             "down_l3": (2, 16, 256, 16, 16, 320),
+                             "renal W 20": (1, 24, 256, 12, 20, 320)}
+    assert all(s[1] % 2 == 0 and s[3] % 2 == 0 and s[4] % 2 == 0 for s in s2.geometries.values())
+    assert set(s2.api) == {"launch", "nblk"} and s2.prefix == "conv3x3_s2_stats"
+
+
+def test_phase_probe_s2_exits_nonzero_without_cuda(no_cuda, tmp_path):
+    from runet_tpu_torch.utils import phase_probe
+
+    out = tmp_path / "phases.json"
+    assert phase_probe.main(["--kernel", "s2", "--out", str(out)]) != 0
+    assert not out.exists()
+
+
 def test_bit_compare_reads_the_kernel_lines_of_a_smoke_log():
     from runet_tpu_torch.utils import bit_compare
 
@@ -328,6 +390,24 @@ def test_bit_compare_reads_the_kernel_lines_of_a_smoke_log():
                                                                (2, 128, 32, 128, 128, 32)]
     assert bit_compare.logged_shapes(log, "conv3x3_stats_v2") == [(1, 6, 64, 6, 10, 64)]
     assert all(len(s) == 6 for s in bit_compare.DEFAULT_SHAPES)
+
+
+def test_bit_compare_reads_the_stride_2_kernel_lines_and_takes_even_shapes():
+    from runet_tpu_torch.utils import bit_compare
+
+    log = "\n".join([
+        "[kernels] conv3x3_s2_stats serve x(1, 64, 24, 256, 256)->64 x2: err 0.0156 ms 1.2",
+        "[kernels] conv3x3_s2_dw train x(2, 128, 32, 128, 128)->64 x2: err 1e-07",
+        "[kernels] conv3x3_stats serve x(1, 6, 320, 6, 10)->320 x2: err 0.0156 ms 0.1581",
+        "[kernels] conv3x3_s2_stats serve_renal x(1, 24, 256, 12, 20)->320 x1: err 0.0078",
+        "[tiles] conv3x3_s2_stats Narrow64 Ho 5 x(1, 4, 32, 10, 32)->64: err 0.0078",
+    ])
+    assert bit_compare.logged_shapes(log, "conv3x3_s2_stats") == [
+        (1, 64, 24, 256, 256, 64), (1, 24, 256, 12, 20, 320)]
+    assert bit_compare.logged_shapes(log, "conv3x3_stats") == [(1, 6, 320, 6, 10, 320)]
+    assert "conv3x3_s2_stats" in bit_compare.KERNELS
+    assert all(len(s) == 6 and s[1] % 2 == 0 and s[3] % 2 == 0 and s[4] % 2 == 0
+               for s in bit_compare.S2_DEFAULT_SHAPES)
 
 
 def test_bit_compare_exits_nonzero_without_cuda(no_cuda, tmp_path):
