@@ -90,7 +90,7 @@ Phases (any failure exits non-zero; nothing is caught and printed over):
    also runs on x at an odd element offset, its element-load instance,
    which must give the aligned run's y, sums and sqs bit for bit
    (``element_ms`` times it); at every shape of
-   the stride-1 weight-gradient kernel (two-stage cp.async ring) x, and
+   the two weight-gradient kernels (each staged in two stages) x, and
    separately g, at an odd offset must give the aligned run's dw bit for
    bit (``element_ms`` times the odd x); at every shape of the attic NDHWC
    conv + moments (its tile follows W, its kd planes go through a cp.async
@@ -959,9 +959,7 @@ def _dw_case(mod, x_shape, cout, gen, dev):
     max_err = float((got - want).abs().max())
     if not rel <= DW_TOL:
         raise AssertionError(f"|dw - plain| reaches {rel} of Σ|x||g| (> {DW_TOL})")
-    extra = {}
-    if not stride2:
-        extra["element_ms"] = _dw_element_loads_case(wrap, x, g, got)
+    extra = {"element_ms": _dw_element_loads_case(wrap, x, g, got)}
     del got, want, bound
     ms = cuda_ms(lambda: wrap(x, g), reps=10)
     plain_ms = cuda_ms(lambda: plain(x, g), reps=3)
@@ -985,10 +983,10 @@ def _dw_case(mod, x_shape, cout, gen, dev):
 
 
 def _dw_element_loads_case(wrap, x, g, aligned) -> float:
-    """The element-load instances of the stride-1 weight-gradient kernel: x,
-    and separately g, at an odd offset must give the aligned run's dw bit
-    for bit (where W % 8 != 0 all runs take element loads). Returns the time
-    with x at the odd offset."""
+    """The element-load instances of a weight-gradient kernel (stride 1 or
+    2): x, and separately g, at an odd offset must give the aligned run's dw
+    bit for bit (where W % 8 != 0 all runs take element loads). Returns the
+    time with x at the odd offset."""
     xo, go = _at_odd_offset(x), _at_odd_offset(g)
     for which, u, v in (("x", xo, g), ("g", x, go)):
         if not torch.equal(wrap(u, v), aligned):
@@ -1466,14 +1464,14 @@ def kernel_lines(measured, path_counts):
     line carries the pair's times (``pair_ms``, ``pair_plain_ms``,
     ``pair_library_ms``: ``F.instance_norm`` + ``F.leaky_relu``), and the
     lines of the four conv + moments kernels of the main paths (v2m, v2,
-    v1, stride 2) and of the stride-1 weight gradient the time of their
+    v1, stride 2) and of the two weight gradients the time of their
     element-load instance over the same shapes (``element_ms``); the v2m,
-    v2 and stride-2 lines their main-path sums by shape class
-    (``ms_by_class``); the v3 line carries its kernel's and its
+    v2, stride-2 and stride-2 weight-gradient lines their main-path sums by
+    shape class (``ms_by_class``); the v3 line carries its kernel's and its
     library call's CUDA-graph times over the same shapes (``graph_ms``,
     ``graph_library_ms``)."""
     classes = {"conv3x3_stats": _v2m_classes, "conv3x3_stats_v2": _v2m_classes,
-               "conv3x3_s2_stats": _s2_classes}
+               "conv3x3_s2_stats": _s2_classes, "conv3x3_s2_dw": _s2_classes}
     replaces = {
         "conv3x3_stats": "runet_tpu/kernels/fused_block.py:639",
         "conv3x3_s2_stats": "runet_tpu/kernels/strided_conv.py:80",
@@ -1541,9 +1539,10 @@ def _v2m_classes(cases) -> dict:
 
 
 def _s2_classes(cases) -> dict:
-    """Row 2's timed main-path shapes by the tile they take: wide (output
-    Wo > 16) and narrow (Wo <= 16); shapes, ms, cuDNN + sums ms and bound
-    ms of each."""
+    """A stride-2 kernel's (row 2's or row 4's) timed main-path shapes by
+    output width: wide (Wo > 16) and narrow (Wo <= 16: row 2's 8 x 16
+    tiles, row 4's single k-step); shapes, ms, library ms (cuDNN + sums,
+    or cuDNN's weight gradient) and bound ms of each."""
     out = {}
     for tag, narrow in (("wide", False), ("narrow", True)):
         cs = [c for c in cases if (c["x_shape"][4] // 2 <= 16) == narrow]

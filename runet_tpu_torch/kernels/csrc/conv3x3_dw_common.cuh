@@ -5,23 +5,24 @@
 //   dw[tap, ci, co] = sum over output voxels v of x[v + tap] * g[v, co]
 // with M = (tap, ci), N = co and K = the output voxels (b, d, h, w).
 //
-// One block owns CI_T = 16 input channels x CO_T = 32 output channels of all
-// 27 taps and a contiguous range of K-tiles (the split, blockIdx.y). A
-// K-tile is TH output rows x TW = 32 output columns of one (b, d). For each
-// K-tile the block stages the input halo (3 planes x XR rows x 16 channels,
-// column innermost, in the stride's own line layout) and the g tile (TH rows
-// x 32 channels x 32 columns) in shared memory, both in 16-byte chunks (the
-// stride-1 kernel in two halves through a cp.async ring); warp (kd, kh) then
-// runs the three kw taps of its (kd, kh) as 3 m16 tiles against 4 n8 tiles,
-// two 16-voxel k-steps per row.
+// The K dimension is cut into K-tiles of TH output rows x TW = 32 output
+// columns of one (b, d), and the K-tiles into contiguous ranges, the splits
+// (blockIdx.y). A block owns CI_T = 16 input channels of all 27 taps and
+// one split's K-tiles, and stages each K-tile's input halo and g in shared
+// memory in two stages, one being filled while the warps read the other
+// (cp.async copies; TMA copies in the stride-2 kernel's aligned instance);
+// warp (kd, kh) runs the three kw taps of its (kd, kh) as 3 m16 tiles
+// against 4 n8 tiles of a CO_T = 32 channel group, two 16-voxel k-steps per
+// row. The stride-1 kernel's 9-warp blocks own one such group and stage
+// half K-tiles; the stride-2 kernel's 18-warp blocks own two and stage
+// whole K-tiles.
 //
 // This file holds what the two kernels share: the tile geometry (DwGeom),
-// the g stager of whole K-tiles (16-byte chunks, conv3x3_common.cuh's
-// ld_chunk; the stride-1 kernel stages half K-tiles with its own), the write
-// of a block's partial dw, and the split count and second pass. Each block
-// writes its f32 partial dw for its split to a slot of its own;
-// reduce_splits then sums the slots of each weight in a fixed order. No
-// float atomics, so a run gives the same bits every time.
+// the write of a stride-1 block's partial dw, and the split count (in
+// 32-channel groups) and second pass. Each block writes its f32 partial dw
+// for its split to a slot of its own; reduce_splits then sums the slots of
+// each weight in a fixed order. No float atomics, so a run gives the same
+// bits every time.
 #pragma once
 
 #include "conv3x3_common.cuh"
@@ -33,45 +34,13 @@ struct DwGeom {
   static constexpr int TH = S == 1 ? 8 : 4;  // output rows per K-tile
   static constexpr int TW = 32;              // output columns per K-tile
   static constexpr int CI_T = 16;            // input channels per block (MMA M)
-  static constexpr int CO_T = 32;            // output channels per block
+  static constexpr int CO_T = 32;            // output channels of a warp's N
   static constexpr int NT = CO_T / 8;
   static constexpr int NWARPS = 9;  // warp = kd * 3 + kh
   static constexpr int NTHREADS = NWARPS * 32;
-  static constexpr int XR = S * TH + (S == 1 ? 2 : 1);  // staged input rows per plane
   static constexpr int GROW = 40;  // shared stride of one (row, co) line of g
-  static constexpr int SMEM_G = TH * CO_T * GROW;
-  static constexpr int U = 4;  // chunk loads in flight per thread
   static_assert(TW == 32 && GROW % 8 == 0, "g lines of four 16-byte chunks");
 };
-
-// Stage the g tile: gs[(r * CO_T + co) * GROW + k] = g[b, d, co0+co, h0+r,
-// w0+k] for an output of Ho x Wo, zero outside it and past Cout (a zero g
-// voxel adds nothing, which also masks the ragged K edge). Chunk e covers
-// k = 8q..8q+7 of line e / 4 = r * CO_T + co.
-template <int S, bool VEC>
-__device__ __forceinline__ void dw_stage_g(bf16* __restrict__ gs, const bf16* __restrict__ gb,
-                                           int Cout, int Ho, int Wo, int h0, int w0, int co0) {
-  using G = DwGeom<S>;
-  constexpr int NCH = G::TH * G::CO_T * 4, U = G::U;
-  const int64_t HWo = (int64_t)Ho * Wo;
-  for (int base = threadIdx.x; base < NCH; base += G::NTHREADS * U) {
-    uint4 v[U];
-#pragma unroll
-    for (int u = 0; u < U; ++u) {
-      const int e = base + u * G::NTHREADS;
-      const int q = e & 3, co = (e >> 2) % G::CO_T, r = (e >> 2) / G::CO_T;
-      const int hh = h0 + r, cc = co0 + co, ww = w0 + 8 * q;
-      v[u] = make_uint4(0u, 0u, 0u, 0u);
-      if (e < NCH && hh < Ho && cc < Cout)
-        v[u] = ld_chunk<VEC>(gb + (int64_t)cc * HWo + (int64_t)hh * Wo + ww, ww, Wo);
-    }
-#pragma unroll
-    for (int u = 0; u < U; ++u) {
-      const int e = base + u * G::NTHREADS;
-      if (e < NCH) *reinterpret_cast<uint4*>(gs + (e >> 2) * G::GROW + (e & 3) * 8) = v[u];
-    }
-  }
-}
 
 // Write warp (kd, kh)'s accumulators, taps (kd, kh, 0..2), to the block's
 // slot of part (n_splits, 27, C, Cout), skipping channels past C and Cout.
@@ -121,9 +90,9 @@ inline int reduce_splits_launch(const void* part, void* out, int C, int Cout, in
   return (int)cudaGetLastError();
 }
 
-// Number of K splits for an (Do, Ho, Wo) output: enough blocks for about
-// four per SM, at most one split per K-tile, and a partial buffer of at
-// most 64 MB.
+// Number of K splits for an (Do, Ho, Wo) output: enough (CI_T x CO_T
+// channel tile, split) pairs for about four per SM, at most one split per
+// K-tile, and a partial buffer of at most 64 MB.
 template <int S>
 int dw_splits(int B, int Do, int Ho, int Wo, int C, int Cout, int num_sms) {
   using G = DwGeom<S>;

@@ -20,9 +20,11 @@ symmetric ``padding=1``. Two CUDA kernels:
   input once (each output reads 8x its volume); the kernel is still
   several times slower than that (PERF.md §6).
 - ``csrc/conv3x3_s2_dw.cu`` replaces ``_s2_dw_kernel``, the weight
-  gradient: the stride-1 dw's implicit GEMM with the input halo staged in
-  16-byte chunks as separate even and odd columns, one launch for the whole
-  batch.
+  gradient: the stride-1 dw's implicit GEMM in blocks of 16 input x 64
+  output channels, each K-tile's raw input lines and g loaded into one of
+  two stages by TMA tensor copies (a cp.async ring for unaligned inputs)
+  and each stride-2 A fragment taken from two staged words by one
+  byte-permute, one launch for the whole batch.
 
 Unlike the Pallas gate (B == 1 only) both take any batch B >= 1.
 ``ConvS2Stats`` is the autograd Function of the JAX ``conv3x3_s2``

@@ -2,10 +2,11 @@
 the stride-1 weight-gradient kernel (``csrc/conv3x3_dw.cu``), of the attic
 NDHWC conv + moments (``csrc/conv3x3_ndhwc_stats.cu``), of the main-path
 v2m conv + moments (``csrc/conv3x3_stats.cu``), of the v2 conv + moments
-(``csrc/conv3x3_stats_v2.cu``) or of the stride-2 conv + moments
-(``csrc/conv3x3_s2_stats.cu``).
+(``csrc/conv3x3_stats_v2.cu``), of the stride-2 conv + moments
+(``csrc/conv3x3_s2_stats.cu``) or of the stride-2 weight gradient
+(``csrc/conv3x3_s2_dw.cu``).
 
-    python -m runet_tpu_torch.utils.phase_probe [--kernel {v1,dw1,v3,v2m,v2,s2}]
+    python -m runet_tpu_torch.utils.phase_probe [--kernel {v1,dw1,v3,v2m,v2,s2,dw2}]
         [--source PATH] [--out PATH]
 
 Each kernel guards its three phases with a compile-time mask, 7 when
@@ -17,7 +18,9 @@ MMAs), ``V2M_PHASES`` for v2m (in ``conv3x3_stats.cuh``: 1 the halo copies
 and their transpose, 2 the weight copies, 4 the MMAs), ``V2_PHASES`` for v2
 (in ``conv3x3_stats_v2.cuh``: the same three phases), ``S2_PHASES`` for s2
 (in ``conv3x3_s2_stats.cuh``: 1 the raw plane copies and their transpose, 2
-the weight copies, 4 the MMAs). This builds the source (this tree's, or
+the weight copies, 4 the MMAs), ``DW2_PHASES`` for dw2 (in
+``conv3x3_dw_s2.cuh``: 1 the x staging, 2 the g staging, 4 the MMAs). This
+builds the source (this tree's, or
 another checkout's with ``--source``) four times, as probe
 libraries that ``#define`` the mask to 7, 6, 5 and 3 and then ``#include``
 the source, and times each library's launch entry with CUDA events on the
@@ -33,8 +36,11 @@ moment reduction) at the same two and at B 2, 128³, 32→32, for v2
 ``conv3x3_s2_stats_launch`` at fine_kits' level-0, 2 and 3 down convs, x
 (2, 128, 32, 128, 128)→64, (2, 32, 128, 32, 32)→256 and (2, 16, 256, 16,
 16)→320, and at renal_anatomy's x (1, 24, 256, 12, 20)→320 (W = 20: element
-loads). A phase's share is 1 − t(without it) / t(all). A build without a
-phase computes a wrong output: only its time is read. Prints one JSON object with the ms per mask, the
+loads); for dw2 ``conv3x3_s2_dw_launch`` (the dw kernel and its split
+reduction) at the four main-path levels of fine_kits' down convs, x (2, 128,
+32, 128, 128)→64, (2, 64, 64, 64, 64)→128, (2, 32, 128, 32, 32)→256 and (2,
+16, 256, 16, 16)→320. A phase's share is 1 − t(without it) / t(all). A
+build without a phase computes a wrong output: only its time is read. Prints one JSON object with the ms per mask, the
 shares and the card's name and power limit (also written to ``--out``).
 Needs a GPU and nvcc.
 """
@@ -86,22 +92,39 @@ def _v1_launcher(libs, shape, gen):
     return launch
 
 
-def _dw1_launcher(libs, shape, gen):
-    """A launch of one dw1 probe library at (B, edge, Cin, Cout)."""
-    B, e, cin, cout = shape
+def _conv_dw_launcher(prefix, libs, x_shape, cout, stride, gen):
+    """A launch of one weight-gradient probe library, whose C entries start
+    with ``prefix``, at x ``x_shape`` (B, D, C, H, W) -> ``cout`` with the
+    given conv stride (g's extents are the input's over it)."""
+    B, D, cin, H, W = x_shape
     dev = torch.device("cuda")
-    x = torch.randn((B, e, cin, e, e), generator=gen, device=dev).to(torch.bfloat16)
-    g = torch.randn((B, e, cout, e, e), generator=gen, device=dev).to(torch.bfloat16)
+    x = torch.randn(x_shape, generator=gen, device=dev).to(torch.bfloat16)
+    g = torch.randn((B, D // stride, cout, H // stride, W // stride), generator=gen,
+                    device=dev).to(torch.bfloat16)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    n_splits = int(next(iter(libs.values())).conv3x3_dw_splits(B, e, e, e, cin, cout, sms))
+    n_splits = int(getattr(next(iter(libs.values())), f"{prefix}_splits")(B, D, H, W, cin, cout,
+                                                                           sms))
     part = torch.empty((n_splits, 27, cin, cout), dtype=torch.float32, device=dev)
     dw = torch.empty((3, 3, 3, cin, cout), dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
 
     def launch(lib):
-        return lib.conv3x3_dw_launch(x.data_ptr(), g.data_ptr(), part.data_ptr(), dw.data_ptr(),
-                                     B, e, cin, e, e, cout, n_splits, stream)
+        return getattr(lib, f"{prefix}_launch")(x.data_ptr(), g.data_ptr(), part.data_ptr(),
+                                                dw.data_ptr(), B, D, cin, H, W, cout, n_splits,
+                                                stream)
     return launch
+
+
+def _dw1_launcher(libs, shape, gen):
+    """A launch of one dw1 probe library at (B, edge, Cin, Cout)."""
+    B, e, cin, cout = shape
+    return _conv_dw_launcher("conv3x3_dw", libs, (B, e, cin, e, e), cout, 1, gen)
+
+
+def _dw2_launcher(libs, shape, gen):
+    """A launch of one dw2 probe library at x (B, D, Cin, H, W) -> Cout."""
+    *x_shape, cout = shape
+    return _conv_dw_launcher("conv3x3_s2_dw", libs, tuple(x_shape), cout, 2, gen)
 
 
 def _conv_stats_launcher(prefix, libs, x_shape, cout, stride, gen):
@@ -177,7 +200,8 @@ class Kernel:
     prefix: str  # the C entries' common prefix
     api: dict  # {suffix: (argtypes, restype)} of the entries bound
     without: dict  # phase name -> the mask that leaves it out
-    # name -> (B, edge of the cubic volume, Cin, Cout); for s2 x's (B, D, Cin, H, W) and Cout
+    # name -> (B, edge of the cubic volume, Cin, Cout); for s2 and dw2 x's (B, D, Cin, H, W)
+    # and Cout
     geometries: dict
     launcher: object  # (libs, shape, generator) -> launch(lib) on fresh inputs
 
@@ -212,6 +236,11 @@ KERNELS = {
                  {"down_l0": (2, 128, 32, 128, 128, 64), "down_l2": (2, 32, 128, 32, 32, 256),
                   "down_l3": (2, 16, 256, 16, 16, 320), "renal W 20": (1, 24, 256, 12, 20, 320)},
                  _s2_launcher),
+    "dw2": Kernel(build.CSRC / "conv3x3_s2_dw.cu", "DW2_PHASES", "conv3x3_s2_dw", _CONV_DW_API,
+                  {"x": 6, "g": 5, "mma": 3},
+                  {"down_l0": (2, 128, 32, 128, 128, 64), "down_l1": (2, 64, 64, 64, 64, 128),
+                   "down_l2": (2, 32, 128, 32, 32, 256), "down_l3": (2, 16, 256, 16, 16, 320)},
+                  _dw2_launcher),
 }
 SOURCE = KERNELS["v1"].source
 ALL = 7

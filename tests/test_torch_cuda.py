@@ -783,11 +783,12 @@ def test_conv3x3_dw_kernel_is_deterministic_across_tile_seams(cuda):
     assert torch.equal(fused_block.conv3x3_dw(x, g), fused_block.conv3x3_dw(x, g))
 
 
-# The stride-2 kernel stages each input line of a K-tile (65 columns) as
-# eight 16-byte chunks split into even and odd columns, with one 16-byte
-# load per chunk where W % 8 == 0 and x is 16-byte aligned (eight element
-# loads otherwise), and the 65th column as one element; g as four chunks
-# per row, 16-byte loads where Wo % 8 == 0 and g is aligned.
+# The stride-2 kernel stages each input line of a K-tile (65 columns) raw:
+# by TMA tensor copies where x and g are 16-byte aligned, W % 8 == 0 and Wo
+# % 8 == 0 (zero past the extents by the copy), else through a cp.async ring
+# of eight 16-byte chunks and the word of columns 64-65 per x line (eight
+# element loads per chunk and one for the 65th column where x has no
+# 16-byte loads) and four chunks per g row.
 _S2_DW_STAGING_SHAPES = [
     (1, 4, 16, 6, 8, 32),     # Wo = 4: only chunk 0 of each x line is real
     (1, 4, 32, 10, 16, 64),   # Wo = 8: chunks 2-7 lie past W; ragged H (Ho = 5)
@@ -814,8 +815,31 @@ def test_conv3x3_s2_dw_kernel_matches_plain(cuda, B, D, C, H, W, Cout):
     assert_dw_close(dw, want, bound)
 
 
+# The stride-2 kernel's blocks own 16 input x 64 output channels and stage
+# each whole K-tile (4 output rows x 32 output columns of one (b, d)) in one
+# of two stages, and skip the k-step over output columns 16-31 of a tile
+# where they lie past Wo. Shapes at the ring's seams (split counts as on an
+# H100 SXM, 132 SMs), x (B, D, C, H, W) -> Cout:
+_S2_DW_RING_SHAPES = [
+    (1, 4, 16, 8, 64, 32),      # two splits of one K-tile each; Cout 32: the second half idle
+    (3, 4, 256, 8, 64, 320),    # four splits of 1, 2, 1, 2 K-tiles; split 1 crosses d and b
+    (1, 4, 48, 12, 64, 96),     # Cout 96: an odd number of 32-channel tiles; Ho = 6
+    (2, 4, 256, 8, 80, 320),    # Wo = 40: splits of two K-tiles, both k-steps, then one
+]
+
+
+@pytest.mark.parametrize("B,D,C,H,W,Cout", _S2_DW_RING_SHAPES)
+def test_conv3x3_s2_dw_ring_shapes_match_plain(cuda, B, D, C, H, W, Cout):
+    x, g = _dw_inputs((B, D, C, H, W), (B, D // 2, Cout, H // 2, W // 2), 18, cuda)
+    dw = strided_conv.conv3x3_s2_dw(x, g)
+    want = strided_conv.conv3x3_s2_dw_plain(x, g)
+    bound = strided_conv.conv3x3_s2_dw_plain(x.abs(), g.abs())
+    torch.cuda.synchronize()
+    assert_dw_close(dw, want, bound)
+
+
 @pytest.mark.parametrize("unaligned", ["x", "g"])
-@pytest.mark.parametrize("B,D,C,H,W,Cout", _S2_DW_STAGING_SHAPES)
+@pytest.mark.parametrize("B,D,C,H,W,Cout", _S2_DW_STAGING_SHAPES + _S2_DW_RING_SHAPES)
 def test_conv3x3_s2_dw_element_loads_equal_vector_loads(cuda, unaligned, B, D, C, H, W, Cout):
     """x or g at an odd element offset takes the element-load staging; the
     same values reach the same fragments, so dw has the same bits."""
@@ -830,6 +854,66 @@ def test_conv3x3_s2_dw_element_loads_equal_vector_loads(cuda, unaligned, B, D, C
     assert torch.equal(dw, aligned)
     assert_dw_close(dw, strided_conv.conv3x3_s2_dw_plain(x, g),
                     strided_conv.conv3x3_s2_dw_plain(x.abs(), g.abs()))
+
+
+def test_s2_dw_ring_shapes_split_as_their_comments_say(cuda):
+    from runet_tpu_torch.kernels.conv_common import _CONV_DW_API, _library
+
+    if torch.cuda.get_device_properties(cuda).multi_processor_count != 132:
+        pytest.skip("the split counts are those of a 132-SM card")
+    lib = _library(strided_conv.DW_SOURCE, _CONV_DW_API)
+
+    def tiles_per_split(B, D, C, H, W, Cout):
+        n = int(lib.conv3x3_s2_dw_splits(B, D, H, W, C, Cout, 132))
+        k = B * (D // 2) * -(-(H // 2) // 4) * -(-(W // 2) // 32)
+        return [k * (s + 1) // n - k * s // n for s in range(n)]
+
+    assert tiles_per_split(*_S2_DW_RING_SHAPES[0]) == [1, 1]
+    assert tiles_per_split(*_S2_DW_RING_SHAPES[1]) == [1, 2, 1, 2]
+    assert tiles_per_split(*_S2_DW_RING_SHAPES[2]) == [1, 1, 1, 1]
+    assert tiles_per_split(*_S2_DW_RING_SHAPES[3]) == [2, 2, 2, 2]
+
+
+# sha256 of dw's bytes from numpy inputs (seed 21), x (B, D, C, H, W) ->
+# Cout: the four main-path levels of fine_kits' down convs at D = 8 (Do =
+# 4), Cout 96, Wo = 9 (element loads for x and g) and two ring seams,
+# recorded from the kernel of 9-warp blocks of 32 output channels that
+# staged whole K-tiles synchronously, on an NVIDIA H100 80GB HBM3 (132 SMs).
+# The split count, and so the order of the f32 sums, follows the SM count.
+_S2_DW_DIGESTS = {
+    (2, 8, 32, 128, 128, 64):
+        "84bf7cca442c64e65d48303f4be23015852e20398127bb9c05196f0c3822c6f6",
+    (2, 8, 64, 64, 64, 128):
+        "6037ed9eae99695883d8a29194213ceaee940de6764dc85bd27f6f82711e9f88",
+    (2, 8, 128, 32, 32, 256):
+        "4ae14ddf1f861a63a4d377750d42aaec66d9fe10df330456dd80467ff39087db",
+    (2, 8, 256, 16, 16, 320):
+        "98fa020f1299094c53ea49088aa60b14c52a581612ff2ea7e3cc9cdfe1a4da6e",
+    (1, 4, 48, 12, 64, 96):
+        "bfabd3918b07438d188180b78c2fd2f6b1cc35ed2cfaa48ae13566d7d7506628",
+    (1, 4, 24, 10, 18, 32):
+        "0e7a9dec1a398f91746f4e25eff51de5da6870f10c17f2881791f7e47a1b13aa",
+    (1, 4, 16, 8, 64, 32):  # splits of one K-tile
+        "e8d9085d0f5c5882a6a88eee2bf22c5583b5cbc8ecaf09e900c45547ca39fc8a",
+    (3, 4, 256, 8, 64, 320):  # a split across a d and a b boundary
+        "da9e062fd3016018c5b3d31d80ae48af68c4d0f11e8374da645208ecd559df9a",
+}
+
+
+def _s2_dw_digest(shape, device):
+    import hashlib
+
+    B, D, C, H, W, Cout = shape
+    x, g = _dw_inputs((B, D, C, H, W), (B, D // 2, Cout, H // 2, W // 2), 21, device)
+    dw = strided_conv.conv3x3_s2_dw(x, g)
+    return hashlib.sha256(dw.cpu().numpy().tobytes()).hexdigest()
+
+
+@pytest.mark.parametrize("shape", list(_S2_DW_DIGESTS))
+def test_conv3x3_s2_dw_keeps_its_recorded_bits(cuda, shape):
+    if torch.cuda.get_device_properties(cuda).multi_processor_count != 132:
+        pytest.skip("the digests were recorded on a 132-SM card")
+    assert _s2_dw_digest(shape, cuda) == _S2_DW_DIGESTS[shape]
 
 
 def test_conv3x3_s2_dw_kernel_is_deterministic_across_tile_seams(cuda):

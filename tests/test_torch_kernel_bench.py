@@ -163,7 +163,39 @@ def test_chip_smoke_kernel_lines_split_row_2_by_output_width():
         "narrow": {"shapes": 2, "ms": 0.75, "library_ms": 2.25, "bound_ms": 0.09375}}
     assert row2["ms"] == 15.75 and row2["element_ms"] == 15.75 and row2["max_abs_err"] == 0.03
     assert set(lines["conv3x3_stats"]["ms_by_class"]) == {"deep", "narrow", "rest"}
-    assert "ms_by_class" not in lines["conv3x3_s2_dw"]
+    assert lines["conv3x3_s2_dw"]["ms_by_class"] == {
+        "wide": {"shapes": 1, "ms": 3.0, "library_ms": 9.0, "bound_ms": 0.375},
+        "narrow": {"shapes": 0, "ms": 0, "library_ms": 0, "bound_ms": 0}}
+
+
+def test_chip_smoke_kernel_lines_split_row_4_by_output_width():
+    """Row 4's (the stride-2 weight gradient's) ``kernels`` entry carries its
+    main-path sums by output width (wide: Wo > 16, both k-steps; narrow: Wo
+    <= 16, one) and the time of its element-load instance, without the
+    kernel bench's shapes; the stride-1 weight gradient carries no classes."""
+    import chip_smoke
+
+    def case(path, x_shape, cout, ms):
+        return {"path": path, "x_shape": list(x_shape), "cout": cout, "launches": 2,
+                "reused": False, "max_abs_err": 1e-6, "rel_err": 1e-7, "ms": ms,
+                "plain_ms": 8 * ms, "library_ms": 2 * ms, "bound_ms": ms / 8,
+                "bound_by": "operations", "element_ms": 3 * ms}
+
+    cases = [case("train", (2, 128, 32, 128, 128), 64, 0.5),
+             case("train", (2, 64, 64, 64, 64), 128, 0.25),
+             case("train", (2, 32, 128, 32, 32), 256, 0.125),     # Wo = 16: narrow
+             case("train_renal", (2, 16, 256, 16, 16), 320, 0.0625),
+             case("kernel_bench", (1, 16, 256, 16, 16), 320, 8.0)]
+    measured = {"conv3x3_s2_dw": cases,
+                "conv3x3_dw": [case("train", (2, 128, 32, 128, 128), 32, 1.0)]}
+    lines = {k["name"]: k for k in chip_smoke.kernel_lines(measured, {"train": {}})}
+    row4 = lines["conv3x3_s2_dw"]
+    assert row4["ms_by_class"] == {
+        "wide": {"shapes": 2, "ms": 0.75, "library_ms": 1.5, "bound_ms": 0.09375},
+        "narrow": {"shapes": 2, "ms": 0.1875, "library_ms": 0.375, "bound_ms": 0.0234375}}
+    assert row4["ms"] == 8.9375 and row4["element_ms"] == 3 * 8.9375
+    assert row4["replaces"] == "runet_tpu/kernels/strided_conv.py:223"
+    assert "ms_by_class" not in lines["conv3x3_dw"] and lines["conv3x3_dw"]["element_ms"] == 3.0
 
 
 @pytest.mark.parametrize("iters,reps", [(30, 3), (4, 1)])
@@ -273,6 +305,34 @@ def test_phase_probe_dw1_exits_nonzero_without_cuda(no_cuda, tmp_path):
 
     out = tmp_path / "phases.json"
     assert phase_probe.main(["--kernel", "dw1", "--out", str(out)]) != 0
+    assert not out.exists()
+
+
+def test_phase_probe_dw2_defines_its_mask_and_includes_the_source(tmp_path):
+    from runet_tpu_torch.kernels import build
+    from runet_tpu_torch.utils import phase_probe
+
+    src = tmp_path / "k.cu"
+    text = phase_probe.probe_source(src, 5, "DW2_PHASES")
+    assert text.splitlines() == ["#define DW2_PHASES 5", f'#include "{src.resolve()}"']
+    dw2 = phase_probe.KERNELS["dw2"]
+    assert dw2.macro == "DW2_PHASES" and dw2.source.name == "conv3x3_s2_dw.cu"
+    assert dw2.source.exists() and '#include "conv3x3_dw_s2.cuh"' in dw2.source.read_text()
+    assert "#ifndef DW2_PHASES" in (build.CSRC / "conv3x3_dw_s2.cuh").read_text()
+    assert dw2.without == {"x": 6, "g": 5, "mma": 3}
+    assert dw2.geometries == {"down_l0": (2, 128, 32, 128, 128, 64),
+                              "down_l1": (2, 64, 64, 64, 64, 128),
+                              "down_l2": (2, 32, 128, 32, 32, 256),
+                              "down_l3": (2, 16, 256, 16, 16, 320)}
+    assert all(s[1] % 2 == 0 and s[3] % 2 == 0 and s[4] % 2 == 0 for s in dw2.geometries.values())
+    assert set(dw2.api) == {"launch", "splits"} and dw2.prefix == "conv3x3_s2_dw"
+
+
+def test_phase_probe_dw2_exits_nonzero_without_cuda(no_cuda, tmp_path):
+    from runet_tpu_torch.utils import phase_probe
+
+    out = tmp_path / "phases.json"
+    assert phase_probe.main(["--kernel", "dw2", "--out", str(out)]) != 0
     assert not out.exists()
 
 
@@ -408,6 +468,39 @@ def test_bit_compare_reads_the_stride_2_kernel_lines_and_takes_even_shapes():
     assert "conv3x3_s2_stats" in bit_compare.KERNELS
     assert all(len(s) == 6 and s[1] % 2 == 0 and s[3] % 2 == 0 and s[4] % 2 == 0
                for s in bit_compare.S2_DEFAULT_SHAPES)
+
+
+def test_bit_compare_reads_the_stride_2_dw_kernel_lines_and_takes_even_shapes():
+    from runet_tpu_torch.utils import bit_compare
+
+    log = "\n".join([
+        "[kernels] conv3x3_s2_dw train x(2, 128, 32, 128, 128)->64 x2: err 1e-07 ms 0.3",
+        "[kernels] conv3x3_s2_stats serve x(1, 64, 24, 256, 256)->64 x2: err 0.0156 ms 1.2",
+        "[kernels] conv3x3_dw train x(2, 128, 32, 128, 128)->32 x14: err 2e-07",
+        "[kernels] conv3x3_s2_dw train_renal x(2, 16, 256, 16, 16)->320 x2: err 1e-07",
+    ])
+    assert bit_compare.logged_shapes(log, "conv3x3_s2_dw") == [
+        (2, 128, 32, 128, 128, 64), (2, 16, 256, 16, 16, 320)]
+    assert "conv3x3_s2_dw" in bit_compare.KERNELS
+    shapes = bit_compare.S2_DW_DEFAULT_SHAPES
+    assert len(set(shapes)) == len(shapes)
+    assert all(len(s) == 6 and s[1] % 2 == 0 and s[3] % 2 == 0 and s[4] % 2 == 0
+               for s in shapes)
+    # The four main-path levels at D = 8, Cout 96 and Wo = 9 are among them.
+    assert {(2, 8, 32, 128, 128, 64), (2, 8, 64, 64, 64, 128), (2, 8, 128, 32, 32, 256),
+            (2, 8, 256, 16, 16, 320), (1, 4, 48, 12, 64, 96), (1, 4, 24, 10, 18, 32)} <= set(shapes)
+
+
+def test_bit_compare_time_of_the_stride_2_dw_kernel_exits_nonzero_without_cuda(no_cuda,
+                                                                              tmp_path):
+    from runet_tpu_torch.utils import bit_compare
+
+    out = tmp_path / "bits.json"
+    log = tmp_path / "smoke.log"
+    log.write_text("[kernels] conv3x3_s2_dw train x(2, 16, 256, 16, 16)->320 x2: err 1e-07\n")
+    argv = [str(tmp_path / "conv3x3_s2_dw.cu"), "--log", str(log), "--time", "--out", str(out)]
+    assert bit_compare.main(argv) != 0
+    assert not out.exists()
 
 
 def test_bit_compare_exits_nonzero_without_cuda(no_cuda, tmp_path):
