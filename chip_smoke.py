@@ -92,17 +92,22 @@ Phases (any failure exits non-zero; nothing is caught and printed over):
    (``element_ms`` times it); at every shape of
    the two weight-gradient kernels (each staged in two stages) x, and
    separately g, at an odd offset must give the aligned run's dw bit for
-   bit (``element_ms`` times the odd x); at every shape of the attic NDHWC
-   conv + moments (its tile follows W, its kd planes go through a cp.async
-   ring) x at an odd offset must give the aligned run's y, sums and sqs bit
-   for bit, and where C == Cout the kernel and its library yardstick are
-   also timed in a CUDA graph (``scanned_ms``, the kernel bench's
-   protocol: ``graph_ms``, ``graph_library_ms``);
+   bit (``element_ms`` times the odd x); at every shape of the two attic
+   NDHWC convs (the conv + moments: its tile follows W, its kd planes go
+   through a cp.async ring; the conv: its tile follows W and the packed
+   Cout, TMA fills its ring of kd planes) x at an odd offset must give the
+   aligned run's y (and sums and sqs) bit for bit, and where C == Cout the
+   kernel and its library yardstick are also timed in a CUDA graph
+   (``scanned_ms``, the kernel bench's protocol: ``graph_ms``,
+   ``graph_library_ms``);
 10. attic: the four attic kernels against their plain versions, untimed,
    at shapes the bench does not launch: the NDHWC conv at (7, 13, 29,
-   5)→11, the NDHWC conv + moments (x also at an odd offset, bits equal)
-   at (6, 9, 11, 24)→40, W = 16 and 17 (4, 12, W, 64)→64, a ragged
-   16-row tile (5, 13, 16, 128)→96 and Cout 80 (3, 9, 33, 40)→80, the instance-norm
+   5)→11 and at one shape per tile and edge (``ATTIC_CONV_CASES``: W = 16
+   and 17, a ragged 16-row tile, Cout 80 with Cout_pad 96, Cout 64 at W >
+   16, Cin % 16 = 8, one voxel), the NDHWC conv + moments at (6, 9, 11,
+   24)→40, W = 16 and 17 (4, 12, W, 64)→64, a ragged 16-row tile (5, 13,
+   16, 128)→96 and Cout 80 (3, 9, 33, 40)→80, both with x also at an odd
+   offset, bits equal; the instance-norm
    stats and apply kernels (alone and as the pair) at (1, 8, 8, 8, 320)
    bf16 and at (1, 3, 5, 7, 20) bf16 and f32; row 1 (v2m) at one shape
    per tile, instance and edge (``V2M_TILE_CASES``: 8 x 32 x 32 with and
@@ -1091,7 +1096,10 @@ def phase_kernels(dev, path_shapes):
 # phase_kernels holds): (tag, shape, Cout) for the NDHWC convs, (tag, shape,
 # dtype) for the instance-norm kernels; shapes with no multiple of 8 or 16
 # anywhere, the deepest level's norm, and f32.
-ATTIC_CONV_CASES = [("odd", (7, 13, 29, 5), 11)]
+ATTIC_CONV_CASES = [("odd", (7, 13, 29, 5), 11), ("W 16", (4, 12, 16, 64), 64),
+                    ("W 17", (4, 12, 17, 64), 64), ("ragged H", (5, 13, 16, 128), 96),
+                    ("Cout 80", (3, 9, 33, 32), 80), ("Wide64", (4, 10, 40, 32), 64),
+                    ("Cin 56", (2, 9, 48, 56), 64), ("one voxel", (1, 1, 1, 16), 32)]
 ATTIC_V3_CASES = [("odd", (6, 9, 11, 24), 40), ("W 16", (4, 12, 16, 64), 64),
                   ("W 17", (4, 12, 17, 64), 64), ("ragged H", (5, 13, 16, 128), 96),
                   ("Cout 80", (3, 9, 33, 40), 80)]
@@ -1129,9 +1137,9 @@ def _attic_conv_case(stats: bool, shape, cout, gen, dev, timed: bool = True) -> 
     cuDNN's bf16 conv (+ sums), chained (``cuda_ms``), and with moments
     where C == Cout also in a CUDA graph (``utils/latency.py``'s
     ``scanned_ms``, the kernel bench's protocol: ``graph_ms``,
-    ``graph_library_ms``). With moments, x at an odd offset (the
-    element-load instance) must give the aligned run's y, sums and sqs bit
-    for bit."""
+    ``graph_library_ms``), without them where C == Cout likewise. x at an
+    odd offset (the element-load instance) must give the aligned run's y
+    (with moments also its sums and sqs) bit for bit."""
     from runet_tpu_torch.kernels.attic import conv3d, conv_v3_deep
     from runet_tpu_torch.kernels.conv_common import pack_weight
     from runet_tpu_torch.utils.latency import scanned_ms
@@ -1161,6 +1169,9 @@ def _attic_conv_case(stats: bool, shape, cout, gen, dev, timed: bool = True) -> 
             del odd
         else:
             max_err, rel = _check_y(got, want), 0.0
+            if not torch.equal(conv3d.conv3x3x3_same(_at_odd_offset(x), w, packed), got):
+                raise AssertionError(f"attic conv at x {tuple(shape)}->{cout}: y at an odd "
+                                     f"offset differs from the aligned run")
         del got, want
         if not timed:
             return {"max_abs_err": max_err, "rel_err": rel}
@@ -1188,6 +1199,9 @@ def _attic_conv_case(stats: bool, shape, cout, gen, dev, timed: bool = True) -> 
             graph = {"graph_ms": scanned_ms(lambda xx: conv_v3_deep.conv3x3_v3(xx, w, packed)[0],
                                             x),
                      "graph_library_ms": scanned_ms(lib_step, xc)}
+        elif C == cout:
+            graph = {"graph_ms": scanned_ms(lambda xx: conv3d.conv3x3x3_same(xx, w, packed), x),
+                     "graph_library_ms": scanned_ms(lambda xx: F.conv3d(xx, wc, padding=1), xc)}
     flops = 2.0 * 27 * C * cout * n
     nbytes = 2.0 * n * C + 2.0 * 27 * C * cout + 2.0 * n * cout + (8.0 * cout if stats else 0)
     return {"max_abs_err": max_err, "rel_err": rel, "ms": ms, "plain_ms": plain_ms,
@@ -1467,11 +1481,14 @@ def kernel_lines(measured, path_counts):
     v1, stride 2) and of the two weight gradients the time of their
     element-load instance over the same shapes (``element_ms``); the v2m,
     v2, stride-2 and stride-2 weight-gradient lines their main-path sums by
-    shape class (``ms_by_class``); the v3 line carries its kernel's and its
-    library call's CUDA-graph times over the same shapes (``graph_ms``,
+    shape class (``ms_by_class``), the attic conv's line, which has no
+    main-path shape, its sums by kernel-bench geometry; the lines of the two
+    attic NDHWC convs carry their kernel's and their library call's
+    CUDA-graph times over the same shapes (``graph_ms``,
     ``graph_library_ms``)."""
     classes = {"conv3x3_stats": _v2m_classes, "conv3x3_stats_v2": _v2m_classes,
-               "conv3x3_s2_stats": _s2_classes, "conv3x3_s2_dw": _s2_classes}
+               "conv3x3_s2_stats": _s2_classes, "conv3x3_s2_dw": _s2_classes,
+               "conv3x3_ndhwc": _geometry_classes}
     replaces = {
         "conv3x3_stats": "runet_tpu/kernels/fused_block.py:639",
         "conv3x3_s2_stats": "runet_tpu/kernels/strided_conv.py:80",
@@ -1517,7 +1534,8 @@ def kernel_lines(measured, path_counts):
                                  for p in sorted({c["path"] for c in cs})},
             "path_ms": {p: sum(c["ms"] * c["launches"] for c in every if c["path"] == p)
                         for p in launched},
-            **({"ms_by_class": classes[name]([c for c in cs if c["path"] != "kernel_bench"])}
+            **({"ms_by_class": classes[name](
+                cs if name == "conv3x3_ndhwc" else [c for c in cs if c["path"] != "kernel_bench"])}
                if name in classes else {}),
         })
     return kernels
@@ -1535,6 +1553,21 @@ def _v2m_classes(cases) -> dict:
         cs = [c for c in cases if member(c["x_shape"][2], c["x_shape"][4])]
         out[tag] = {"shapes": len(cs), **{k: sum(c[k] for c in cs)
                                           for k in ("ms", "library_ms", "bound_ms")}}
+    return out
+
+
+def _geometry_classes(cases) -> dict:
+    """The attic conv's timed shapes by the kernel bench's geometry (x (1, D,
+    H, W, C) -> Cout; ``utils/kernel_bench.py``'s ``GEOMETRIES``); shapes,
+    ms, cuDNN ms, bound ms and, where timed, the CUDA-graph ms of each."""
+    from runet_tpu_torch.utils.kernel_bench import GEOMETRIES
+
+    out = {}
+    for tag, (D, H, W, C, cout, _) in GEOMETRIES.items():
+        cs = [c for c in cases if c["x_shape"] == [1, D, H, W, C] and c["cout"] == cout]
+        keys = ["ms", "library_ms", "bound_ms"] + [
+            k for k in ("graph_ms", "graph_library_ms") if cs and all(k in c for c in cs)]
+        out[tag] = {"shapes": len(cs), **{k: sum(c[k] for c in cs) for k in keys}}
     return out
 
 

@@ -9,7 +9,9 @@ plain version on the card (``chip_smoke.py``).
   custom_vjp ``pallas_conv3x3`` with the autograd Function ``AtticConv``.
 - ``conv_v3_deep.py`` replaces ``attic/conv_v3_deep.py::_v3_kernel`` (the
   deep-level NDHWC conv with Σy, Σy²) with ``csrc/conv3x3_ndhwc_stats.cu``:
-  the same implicit GEMM as ``conv3x3_ndhwc.cu`` with the moment epilogue.
+  the k-steps of ``conv3x3_ndhwc.cu`` in the same order (so the same y),
+  staged by ``cp.async`` where that kernel stages by TMA, with the moment
+  epilogue.
 - ``fused_norm.py`` replaces ``attic/fused_norm.py::_stats_kernel`` and
   ``::_apply_kernel`` (the two passes of the standalone InstanceNorm +
   LeakyReLU) with ``csrc/instance_norm_stats.cu`` and

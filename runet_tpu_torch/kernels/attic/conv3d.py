@@ -4,8 +4,11 @@ backward.
 Counterpart of ``runet_tpu/kernels/attic/conv3d.py``: ``csrc/conv3x3_ndhwc.cu``
 replaces the Pallas kernel ``_conv_kernel`` (an im2col tile per output row
 block, one MXU GEMM with K = 27·Cin). On the H100 it is an mma.sync
-implicit GEMM over a channel-innermost shared-memory halo (the taps read
-the halo in place; no im2col), bound by tensor-core throughput.
+implicit GEMM over channel-innermost shared-memory halo planes (the taps
+read a plane in place; no im2col), bound by tensor-core throughput: in
+tiles that W and the packed Cout select (``conv3d_tile``), one (16-channel
+chunk, kd plane) phase a stage of a two-stage ring that TMA tensor copies
+fill, the SAME padding zero-filled by the copy itself.
 
 ``AtticConv`` is the autograd Function of the custom_vjp
 ``pallas_conv3x3``: dx runs through the same kernel on the cotangent with
@@ -31,7 +34,17 @@ SOURCE = "conv3x3_ndhwc"
 launches = 0
 
 __all__ = ["conv3x3x3_same", "conv3x3x3_same_plain", "reference_conv3x3x3", "attic_conv3x3",
-           "AtticConv", "conv_shape_ok", "conv_applicable"]
+           "AtticConv", "conv_shape_ok", "conv_applicable", "conv3d_tile"]
+
+
+def conv3d_tile(W: int, cout_pad: int) -> tuple[int, int, int]:
+    """(rows, columns, output channels) of the CUDA kernel's block tile at
+    width W with the packed weights' Cout_pad (a multiple of 32): 16 x 16 x
+    32 where W <= 16; else 8 x 32 x 64 where Cout_pad % 64 == 0, 8 x 32 x 32
+    where it is 32."""
+    if W <= 16:
+        return (16, 16, 32)
+    return (8, 32, 64) if cout_pad % 64 == 0 else (8, 32, 32)
 
 
 def check_ndhwc_args(x: torch.Tensor, w: torch.Tensor) -> None:

@@ -2,9 +2,10 @@
 // conv3x3_s2_stats.cu, the NDHWC kernels of conv3x3_ndhwc{,_stats}.cuh, and
 // the dw kernels through conv3x3_dw_common.cuh): the 16-byte chunk load
 // along W, cp.async, the bf16 tensor-core MMA and ldmatrix (plain and
-// transposing), the staging of a chunk's weights, the 27-tap MMA loop over
-// a channel-innermost halo; for the kernels that stage one (chunk, kd
-// plane) phase at a time (conv3x3_stats{,_v2}.cuh, conv3x3_ndhwc_stats.cuh)
+// transposing); the mbarriers and TMA tensor copies of the kernels that
+// fill their stages by TMA (conv3x3_dw_s2.cuh, conv3x3_ndhwc.cuh) and the
+// tensor-map encoder; for the kernels that stage one (chunk, kd
+// plane) phase at a time (conv3x3_stats{,_v2}.cuh, conv3x3_ndhwc{,_stats}.cuh)
 // their tile, the copies of a plane's 9 taps of weights and the 9-tap MMA
 // loop; the epilogue that rounds the output to bf16 and folds it into
 // per-block moment partials, and the second pass that reduces those
@@ -17,6 +18,7 @@
 // fixed order. No float atomics, so a run gives the same bits every time.
 #pragma once
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -128,23 +130,83 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t (&a)[4], const bf16* p) {
       : "r"(addr));
 }
 
-// Stage one chunk's weights: ws[(tap * CO_T + co) * WS + ci] =
-// wt[tap, co0 + co, c0 + ci] for 16 input channels, two 16-byte vectors per
-// (tap, cout) row.
-template <int NTHREADS, int CO_T, int WS>
-__device__ __forceinline__ void stage_weights(bf16* __restrict__ ws, const bf16* __restrict__ wt,
-                                              int Cout_pad, int Cin_pad, int co0, int c0) {
-  for (int e = threadIdx.x; e < 27 * CO_T * 2; e += NTHREADS) {
-    const int half = e & 1, r = e >> 1;
-    const int co = r % CO_T, tap = r / CO_T;
-    const uint4* src = reinterpret_cast<const uint4*>(
-        wt + ((int64_t)tap * Cout_pad + co0 + co) * Cin_pad + c0 + half * 8);
-    *reinterpret_cast<uint4*>(ws + (tap * CO_T + co) * WS + half * 8) = *src;
+// The mbarrier of a stage: thread 0 arms it for a stage's bytes, the TMA
+// copies complete it, every thread waits for its phase.
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_addr(bar)) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// Wait until the mbarrier's phase of the given parity has completed; a copy
+// that never lands traps (a launch error) after ~2^26 polls.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  for (long long polls = 0;; ++polls) {
+    uint32_t done;
+    asm volatile(
+        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (polls > (1LL << 26)) __trap();
   }
 }
 
+// One TMA tensor copy of the box at (c0, .., c4) of a rank-5 map into dst.
+__device__ __forceinline__ void tma_load_5d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2, int c3, int c4) {
+  asm volatile(
+      "cp.async.bulk.tensor.5d.shared::cluster.global.tile.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6, %7}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3), "r"(c4)
+      : "memory");
+}
+
+// One TMA tensor copy of the box at (c0, c1, c2) of a rank-3 map into dst.
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.tile.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, looked up through the runtime (no link against
+// libcuda), into *encode. Returns a cudaError_t.
+static int tensor_map_encoder(EncodeTiled* encode) {
+  static EncodeTiled fn_ = nullptr;
+  if (fn_ == nullptr) {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    const cudaError_t e =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found);
+    if (e != cudaSuccess) return (int)e;
+    if (found != cudaDriverEntryPointSuccess || fn == nullptr) return (int)cudaErrorNotSupported;
+    fn_ = reinterpret_cast<EncodeTiled>(fn);
+  }
+  *encode = fn_;
+  return 0;
+}
+
 // The tile of a kernel that stages one (16-channel chunk, kd plane) phase at
-// a time (conv3x3_stats.cuh, conv3x3_ndhwc_stats.cuh): a block of NWARPS
+// a time (conv3x3_stats.cuh, conv3x3_ndhwc{,_stats}.cuh): a block of NWARPS
 // warps owns TH output rows x TW columns x CO_T output channels; warp w
 // computes rows w * RPW .. + RPW - 1, each as MPR m16 tiles of 16 columns,
 // by NT n8 tiles. The staged halo plane is (TH + 2) x XC positions.
@@ -193,7 +255,8 @@ __device__ __forceinline__ void stage_weights_kd(bf16* __restrict__ ws,
 // stage_weights_kd lays them out. A tap's A fragments are held and its B
 // fragments loaded one n8 tile at a time. With XS = WS = 24 both fragment
 // loads are free of bank conflicts. Each accumulator takes one mma per tap,
-// so phases run in the order (c0, kd) give mma_27taps' k-step order.
+// so phases run in the order (c0, kd) give it its k-steps in the order (c0,
+// kd, kh, kw), one mma.m16n8k16 per tap on the same 16 channels.
 template <class T, int XS, int WS>
 __device__ __forceinline__ void mma_9taps(float (&acc)[T::MT][T::NT][4],
                                           const bf16* __restrict__ xs,
@@ -220,52 +283,6 @@ __device__ __forceinline__ void mma_9taps(float (&acc)[T::MT][T::NT][4],
         const uint32_t b[2] = {ld32(p), ld32(p + 8)};
 #pragma unroll
         for (int mt = 0; mt < T::MT; ++mt) mma_16816(acc[mt][nt], a[mt], b);
-      }
-    }
-  }
-}
-
-// The 27 taps of one staged KC = 16 channel chunk: acc += A * B, where warp
-// `warp` computes output row `warp` of the block (halo row S * warp + kh)
-// over MT*16 output columns (halo column S * m + kw) and NT*8 output
-// channels. xs: the halo, channel innermost: input (kd, row, col) of
-// channel ci at ((kd * XR + row) * XC + col) * XS + ci; ws: the chunk's
-// weights as stage_weights lays them out.
-// S is the conv stride (1 or 2). With XS = WS = 24 both fragment loads are
-// bank-conflict free.
-template <int S, int MT, int NT, int XR, int XC, int XS, int CO_T, int WS>
-__device__ __forceinline__ void mma_27taps(float (&acc)[MT][NT][4], const bf16* __restrict__ xs,
-                                           const bf16* __restrict__ ws, int warp, int g, int t) {
-#pragma unroll 1
-  for (int kd = 0; kd < 3; ++kd) {
-#pragma unroll
-    for (int kh = 0; kh < 3; ++kh) {
-      const bf16* xrow = xs + ((kd * XR + S * warp + kh) * XC) * XS;
-#pragma unroll
-      for (int kw = 0; kw < 3; ++kw) {
-        const int tap = (kd * 3 + kh) * 3 + kw;
-        uint32_t a[MT][4];
-#pragma unroll
-        for (int mt = 0; mt < MT; ++mt) {
-          // A[m][k] = input at halo column S * (mt*16 + m) + kw, channel k.
-          const bf16* p = xrow + (S * (mt * 16 + g) + kw) * XS + 2 * t;
-          a[mt][0] = ld32(p);
-          a[mt][1] = ld32(p + S * 8 * XS);
-          a[mt][2] = ld32(p + 8);
-          a[mt][3] = ld32(p + S * 8 * XS + 8);
-        }
-        uint32_t bfr[NT][2];
-#pragma unroll
-        for (int nt = 0; nt < NT; ++nt) {
-          // B[k][n] = weight of tap, output channel n, input channel k.
-          const bf16* p = ws + (tap * CO_T + nt * 8 + g) * WS + 2 * t;
-          bfr[nt][0] = ld32(p);
-          bfr[nt][1] = ld32(p + 8);
-        }
-#pragma unroll
-        for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-          for (int nt = 0; nt < NT; ++nt) mma_16816(acc[mt][nt], a[mt], bfr[nt]);
       }
     }
   }

@@ -60,8 +60,6 @@
 // which keeps the bits whatever the inputs hold elsewhere.
 #pragma once
 
-#include <cuda.h>
-
 #include "conv3x3_dw_common.cuh"
 
 // The phases the kernel runs: 1 the x staging, 2 the g staging, 4 the MMAs.
@@ -209,49 +207,6 @@ __device__ __forceinline__ void dw2_stage_g(bf16* __restrict__ gs, const bf16* _
       if (e < DwS2::NCH_G) *reinterpret_cast<uint4*>(gs + (e >> 2) * G::GROW + 8 * (e & 3)) = v[u];
     }
   }
-}
-
-// The mbarrier of a stage: thread 0 arms it for a K-tile's bytes, the TMA
-// copies complete it, every thread waits for its phase.
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_addr(bar)) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-// Wait until the mbarrier's phase of the given parity has completed; a copy
-// that never lands traps (a launch error) after ~2^26 polls.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  for (long long polls = 0;; ++polls) {
-    uint32_t done;
-    asm volatile(
-        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(smem_addr(bar)), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (polls > (1LL << 26)) __trap();
-  }
-}
-
-// One TMA tensor copy of the box at (c0, .., c4) of a rank-5 map into dst.
-__device__ __forceinline__ void tma_load_5d(void* dst, const CUtensorMap* map, uint64_t* bar,
-                                            int c0, int c1, int c2, int c3, int c4) {
-  asm volatile(
-      "cp.async.bulk.tensor.5d.shared::cluster.global.tile.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4, %5, %6, %7}], [%2];\n" ::"r"(smem_addr(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2),
-      "r"(c3), "r"(c4)
-      : "memory");
 }
 
 // The MMAs of one staged K-tile: warp (half, kd, kh) runs its three kw taps
@@ -454,28 +409,15 @@ conv3x3_dw_s2_kernel(const bf16* __restrict__ x, const bf16* __restrict__ g,
   if (live) dw2_store_partial(part, acc, C, Cout, c0, co0);
 }
 
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
 // The TMA map of a (B, D, C, H, W) bf16 tensor (W % 8 == 0, 16-byte aligned)
 // as a rank-5 tensor with W innermost, boxes of bw columns x bh rows x bc
-// channels of one plane, zero past the extents. The driver's encoder is
-// reached through the runtime (no link against libcuda). Returns a
-// cudaError_t.
+// channels of one plane, zero past the extents (convk::tensor_map_encoder).
+// Returns a cudaError_t.
 static int dw2_tensor_map(CUtensorMap* map, const void* base, int B, int D, int C, int H, int W,
                           int bw, int bh, int bc) {
-  static EncodeTiled encode = nullptr;
-  if (encode == nullptr) {
-    void* fn = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    const cudaError_t e =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found);
-    if (e != cudaSuccess) return (int)e;
-    if (found != cudaDriverEntryPointSuccess || fn == nullptr) return (int)cudaErrorNotSupported;
-    encode = reinterpret_cast<EncodeTiled>(fn);
-  }
+  EncodeTiled encode;
+  const int e = tensor_map_encoder(&encode);
+  if (e != 0) return e;
   const cuuint64_t dims[5] = {(cuuint64_t)W, (cuuint64_t)H, (cuuint64_t)C, (cuuint64_t)D,
                               (cuuint64_t)B};
   const cuuint64_t row = (cuuint64_t)W * 2;  // bytes

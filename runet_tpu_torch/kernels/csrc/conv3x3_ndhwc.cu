@@ -8,16 +8,21 @@
 //   wt (27, Cout_pad, Cin_pad) bf16, packed as for conv3x3_stats.cu;
 //   y  (B, D, H, W, Cout) bf16.
 // Bound on the H100: tensor-core throughput (2*27*C*Cout FLOP per output
-// voxel). Design and what it does about the bound: conv3x3_ndhwc.cuh. The
-// TPU kernel's im2col tile packed K to the MXU's 128; here the 27 taps read
-// the staged halo in place.
+// voxel). Design and what it does about the bound: conv3x3_ndhwc.cuh (row
+// 1's three tiles, one (chunk, kd plane) phase a stage in a two-stage ring
+// that TMA tensor copies fill, ldmatrix fragments). The TPU kernel's im2col
+// tile packed K to the MXU's 128; here the 9 taps of a kd plane read the
+// staged halo plane in place.
 #include "conv3x3_ndhwc.cuh"
 
 extern "C" {
 
+// The Cout multiple of the packed weights this library takes (a Cout_pad
+// that is an odd multiple of 32 takes the 32-channel tile).
 int conv3x3_ndhwc_cout_tile() { return ndhwc::CO_T; }
 
-// psum, psq, sums and sqs are not used (pass null). Returns cudaGetLastError().
+// psum, psq, sums and sqs are not used (pass null). Returns cudaGetLastError(),
+// or the error of a TMA tensor map that could not be made.
 int conv3x3_ndhwc_launch(const void* x, const void* wt, void* y, void* psum, void* psq,
                          void* sums, void* sqs, int B, int D, int C, int H, int W, int Cout,
                          int Cin_pad, int Cout_pad, void* stream) {

@@ -28,8 +28,9 @@
 // as with VEC.
 //
 // Bits. Every accumulator receives its k-steps in the order c0, kd, kh, kw,
-// one mma per tap, with the fragment code and strides of convk::mma_27taps,
-// so y equals conv3x3_ndhwc.cu's bit for bit. The Wide tile's moment slots
+// one mma.m16n8k16 per tap on the same 16 channels (A[m][k] the input at
+// column w0 + m + kw - 1, channel c0 + k), as conv3x3_ndhwc.cu's do, so y
+// equals that kernel's bit for bit. The Wide tile's moment slots
 // are one per (d, 8-row tile, 32-column tile), folded in store_tile's order,
 // so its sums and sqs are those of an 8 x 32 tile epilogue; the Narrow
 // tile folds two rows per warp into each slot, another f32 order.

@@ -57,7 +57,9 @@
 //
 // Bits. Every accumulator receives its k-steps in the order c0, kd, kh,
 // kw, one mma per tap with the same A and B values as the synchronous
-// 4 x 32 x 32 kernel this design replaced (convk::mma_27taps<2, ..>), every
+// 4 x 32 x 32 kernel this design replaced (A[m][k] the input at column
+// 2 (w0 + m) + kw - 1, channel c0 + k; B[k][n] the weight of tap (kd, kh,
+// kw), output channel n, input channel c0 + k), every
 // phase's 9 taps even on a zero-filled plane (skipping an mma can turn the
 // sign of a zero). Moments keep that kernel's slot (d, 4-row tile,
 // 32-column tile), blk = (d * ceil(Ho/4) + ht4) * ceil(Wo/32) + wtile, and
@@ -275,8 +277,9 @@ __device__ __forceinline__ void transpose_plane(bf16* __restrict__ xs,
 // (kw = 1) or E[16 mt + m + 1] (kw = 2), channel k; B[k][n] the weight of
 // tap (kh, kw). One ldmatrix.x4 per m16 tile (lane l: row m = l % 8 + 8 (l
 // / 8 % 2), channels 8 (l / 16)..) and per pair of n8 tiles (row n = l % 8
-// + 8 (l / 16), channels 8 (l / 8 % 2)..): the registers of convk::
-// mma_27taps' 32-bit loads. Each accumulator takes one mma per tap.
+// + 8 (l / 16), channels 8 (l / 8 % 2)..): the registers that 32-bit loads
+// of the mma's fragment layout would fill. Each accumulator takes one mma
+// per tap.
 template <class T>
 __device__ __forceinline__ void mma_9taps(float (&acc)[T::MT][T::NT][4],
                                           const bf16* __restrict__ xs,

@@ -43,7 +43,7 @@
 // column on the lanes of the first and last chunk.
 //
 // Bits. Every accumulator receives its k-steps in the order c0, kd, kh, kw,
-// one mma per tap, as convk::mma_27taps gave them, so y does not depend on
+// one mma.m16n8k16 per tap on the same 16 channels, so y does not depend on
 // the tile. Moments go to one slot per (d, 8-row tile, 32-column tile) in
 // convk::store_tile's order: per thread over mt, then r; an xor-butterfly
 // over the 8 row lanes; the slot's 8 rows summed in index order from 0.f.

@@ -1,11 +1,12 @@
-"""A conv + moments or stride-2 weight-gradient kernel of another checkout
-against this tree's.
+"""A conv + moments, attic NDHWC conv or stride-2 weight-gradient kernel of
+another checkout against this tree's.
 
     python -m runet_tpu_torch.utils.bit_compare OTHER_CU [--log SMOKE_LOG ...] [--time]
         [--out PATH]
 
 OTHER_CU is ``csrc/conv3x3_stats.cu``, ``csrc/conv3x3_stats_v2.cu``, the
-stride-2 ``csrc/conv3x3_s2_stats.cu`` or the stride-2 weight gradient
+stride-2 ``csrc/conv3x3_s2_stats.cu``, the attic NDHWC conv
+``csrc/conv3x3_ndhwc.cu`` or the stride-2 weight gradient
 ``csrc/conv3x3_s2_dw.cu`` of another checkout (a parent unpacked with ``git
 archive``). Both libraries are built (the other one as a probe library,
 this tree's as the port builds it) and loaded into one process; at every
@@ -13,13 +14,16 @@ shape both run on the same random inputs (``torch.Generator`` seed 5). A
 conv + moments kernel runs through ``conv_common.launch_conv_stats`` with x
 aligned and at an odd element offset (the element-load instance); each of
 the change's runs, and the other library's odd-offset run, must give the
-other library's aligned y, sums and sqs bit for bit (``torch.equal``). The
+other library's aligned y, sums and sqs bit for bit (``torch.equal``); the
+attic NDHWC conv likewise, with x (B, D, H, W, C) and y alone. The
 weight gradient runs through ``conv_common.launch_conv_dw`` aligned, with x
 at an odd offset and with g at an odd offset; each of those runs of both
 libraries must give the other library's aligned dw bit for bit. The shapes,
 (B, D, C, H, W, Cout) with x (B, D, C, H, W): ``DEFAULT_SHAPES`` (for the
 stride-2 kernels ``S2_DEFAULT_SHAPES`` and ``S2_DW_DEFAULT_SHAPES``, even,
-their output extents half the input's), and every ``[kernels] <name> ...``
+their output extents half the input's; for the attic NDHWC conv
+``NDHWC_DEFAULT_SHAPES``, (B, D, H, W, C, Cout) with x (B, D, H, W, C)),
+and every ``[kernels] <name> ...``
 line of the ``chip_smoke.py`` logs given with ``--log``, so a kernel change
 is held to its parent at every shape the main paths launched. With
 ``--time`` both libraries are also timed at each logged shape on its
@@ -44,7 +48,8 @@ import torch
 from runet_tpu_torch.kernels import build, conv_common
 from runet_tpu_torch.utils.health import card_line
 
-KERNELS = ("conv3x3_stats", "conv3x3_stats_v2", "conv3x3_s2_stats", "conv3x3_s2_dw")
+KERNELS = ("conv3x3_stats", "conv3x3_stats_v2", "conv3x3_s2_stats", "conv3x3_s2_dw",
+           "conv3x3_ndhwc")
 DEFAULT_SHAPES = [
     (2, 4, 32, 128, 128, 32), (2, 4, 64, 64, 64, 64), (2, 4, 128, 32, 32, 128),
     (2, 4, 256, 16, 16, 256), (2, 4, 320, 8, 8, 320), (1, 5, 1, 20, 128, 32),
@@ -75,9 +80,25 @@ S2_DW_DEFAULT_SHAPES = [
 ]
 
 
+# The attic NDHWC conv's, (B, D, H, W, C, Cout): one shape per tile (16 x 16
+# x 32 where W <= 16, else 8 x 32 x 64 where Cout_pad % 64 == 0, 8 x 32 x 32)
+# and edge, as the CUDA tests hold them (W = 16 and 17, a ragged 16-row
+# tile, Cout 80 with Cout_pad 96, Cin % 16 = 8, C % 8 != 0, one voxel,
+# several row and column tiles), chip_smoke's odd case, and the kernel
+# bench's five geometries at B = 1.
+NDHWC_DEFAULT_SHAPES = [
+    (1, 7, 13, 29, 5, 11), (1, 4, 8, 64, 16, 32), (1, 3, 9, 40, 24, 40), (1, 2, 5, 7, 70, 33),
+    (1, 4, 12, 16, 64, 64), (1, 4, 12, 17, 64, 64), (1, 5, 13, 16, 128, 96),
+    (1, 3, 9, 33, 32, 80), (1, 4, 10, 40, 32, 64), (1, 2, 9, 48, 56, 64), (1, 1, 1, 1, 16, 32),
+    (2, 3, 20, 70, 32, 160), (1, 128, 128, 128, 32, 32), (1, 64, 64, 64, 64, 64),
+    (1, 32, 32, 32, 128, 128), (1, 16, 16, 16, 256, 256), (1, 160, 192, 256, 32, 32),
+]
+
+
 def logged_shapes(text: str, name: str) -> list[tuple[int, ...]]:
-    """(B, D, C, H, W, Cout) of every ``[kernels] <name> <path> x(...)->Cout``
-    line of a ``chip_smoke.py`` log."""
+    """The x shape and Cout of every ``[kernels] <name> <path> x(...)->Cout``
+    line of a ``chip_smoke.py`` log: (B, D, C, H, W, Cout), for the attic
+    NDHWC conv (B, D, H, W, C, Cout)."""
     pat = re.compile(rf"\[kernels\] {re.escape(name)} \S+ x\(([\d, ]+)\)->(\d+) x")
     return [(*(int(v) for v in m.group(1).split(",")), int(m.group(2)))
             for m in pat.finditer(text)]
@@ -132,12 +153,13 @@ def main(argv=None) -> int:
     if name not in KERNELS:
         print(f"bit_compare: {name} is not one of {KERNELS}", file=sys.stderr)
         return 1
-    dw = name == "conv3x3_s2_dw"
-    api = conv_common._CONV_DW_API if dw else conv_common._CONV_STATS_API
+    dw, ndhwc = name == "conv3x3_s2_dw", name == "conv3x3_ndhwc"
+    api = (conv_common._CONV_DW_API if dw else
+           conv_common._CONV_API if ndhwc else conv_common._CONV_STATS_API)
     other = _other_library(args.other.resolve(), name, api)
     ours = conv_common._library(name, api)
     stride = 1 if name in ("conv3x3_stats", "conv3x3_stats_v2") else 2
-    shapes = list(S2_DW_DEFAULT_SHAPES if dw else
+    shapes = list(S2_DW_DEFAULT_SHAPES if dw else NDHWC_DEFAULT_SHAPES if ndhwc else
                   S2_DEFAULT_SHAPES if stride == 2 else DEFAULT_SHAPES)
     logged = [s for log in args.log for s in logged_shapes(log.read_text(), name)]
     shapes = list(dict.fromkeys(shapes + logged))
@@ -149,6 +171,10 @@ def main(argv=None) -> int:
         try:
             if dw:
                 return (conv_common.launch_conv_dw(name, x, operand),)
+            if ndhwc:
+                B, D, H, W, C = x.shape
+                return conv_common.launch_conv_stats(name, x, operand, cout, (D, H, W), "dhwc",
+                                                     stats=False)[:1]
             B, D, C, H, W = x.shape
             return conv_common.launch_conv_stats(name, x, operand, cout,
                                                  (D // stride, H // stride, W // stride))
@@ -159,10 +185,13 @@ def main(argv=None) -> int:
     gen = torch.Generator(device=dev).manual_seed(5)
     unequal, timed = [], {}
     with torch.no_grad():
-        for B, D, C, H, W, Cout in shapes:
-            x = torch.randn((B, D, C, H, W), generator=gen, device=dev).to(torch.bfloat16)
+        for shape in shapes:
+            *x_shape, Cout = shape
+            x = torch.randn(x_shape, generator=gen, device=dev).to(torch.bfloat16)
             xo = _at_odd_offset(x)
+            C = x_shape[4] if ndhwc else x_shape[2]
             if dw:
+                B, D, _, H, W = x_shape
                 g = torch.randn((B, D // 2, Cout, H // 2, W // 2), generator=gen, device=dev
                                 ).to(torch.bfloat16)
                 go = _at_odd_offset(g)
@@ -179,14 +208,14 @@ def main(argv=None) -> int:
             for tag, lib, xx, operand in runs:
                 got = run(lib, xx, operand, Cout)
                 if not all(torch.equal(u, v) for u, v in zip(got, want)):
-                    unequal.append({"shape": [B, D, C, H, W, Cout], "run": tag})
-            if args.time and (B, D, C, H, W, Cout) in logged:
+                    unequal.append({"shape": list(shape), "run": tag})
+            if args.time and shape in logged:
                 operand = g if dw else packed
                 ms = {"other": [], "tree": []}
                 for tag, lib in (("other", other), ("tree", ours), ("tree", ours),
                                  ("other", other)):
                     ms[tag].append(_ms(lambda: run(lib, x, operand, Cout)))
-                timed[str([B, D, C, H, W, Cout])] = ms
+                timed[str(list(shape))] = ms
     torch.cuda.synchronize()
     result = {"card": card_line(), "kernel": name, "other": str(args.other),
               "shapes": len(shapes), "unequal": unequal, **({"ms": timed} if args.time else {})}

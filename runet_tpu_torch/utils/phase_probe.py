@@ -1,12 +1,13 @@
 """Per-phase times of the v1 conv kernel (``csrc/conv3x3_stats_v1.cu``), of
 the stride-1 weight-gradient kernel (``csrc/conv3x3_dw.cu``), of the attic
-NDHWC conv + moments (``csrc/conv3x3_ndhwc_stats.cu``), of the main-path
-v2m conv + moments (``csrc/conv3x3_stats.cu``), of the v2 conv + moments
+NDHWC conv + moments (``csrc/conv3x3_ndhwc_stats.cu``), of the attic NDHWC
+conv (``csrc/conv3x3_ndhwc.cu``), of the main-path v2m conv + moments
+(``csrc/conv3x3_stats.cu``), of the v2 conv + moments
 (``csrc/conv3x3_stats_v2.cu``), of the stride-2 conv + moments
 (``csrc/conv3x3_s2_stats.cu``) or of the stride-2 weight gradient
 (``csrc/conv3x3_s2_dw.cu``).
 
-    python -m runet_tpu_torch.utils.phase_probe [--kernel {v1,dw1,v3,v2m,v2,s2,dw2}]
+    python -m runet_tpu_torch.utils.phase_probe [--kernel {v1,dw1,v3,conv3d,v2m,v2,s2,dw2}]
         [--source PATH] [--out PATH]
 
 Each kernel guards its three phases with a compile-time mask, 7 when
@@ -14,24 +15,27 @@ undefined: ``V1_PHASES`` for v1 (1 the im2col build, 2 the weight staging,
 4 the GEMM), ``DW1_PHASES`` for dw1 (in ``conv3x3_dw_s1.cuh``: 1 the x
 staging, 2 the g staging, 4 the MMAs), ``V3_PHASES`` for v3 (in
 ``conv3x3_ndhwc_stats.cuh``: 1 the halo copies, 2 the weight copies, 4 the
-MMAs), ``V2M_PHASES`` for v2m (in ``conv3x3_stats.cuh``: 1 the halo copies
-and their transpose, 2 the weight copies, 4 the MMAs), ``V2_PHASES`` for v2
-(in ``conv3x3_stats_v2.cuh``: the same three phases), ``S2_PHASES`` for s2
-(in ``conv3x3_s2_stats.cuh``: 1 the raw plane copies and their transpose, 2
-the weight copies, 4 the MMAs), ``DW2_PHASES`` for dw2 (in
-``conv3x3_dw_s2.cuh``: 1 the x staging, 2 the g staging, 4 the MMAs). This
-builds the source (this tree's, or
-another checkout's with ``--source``) four times, as probe
-libraries that ``#define`` the mask to 7, 6, 5 and 3 and then ``#include``
-the source, and times each library's launch entry with CUDA events on the
-same random inputs: for v1 ``conv3x3_stats_v1_launch`` (the conv kernel and
-its moment reduction) at B 2, 128³, 32→32; B 2, 32³, 128→128; B 1, 8³,
-320→320; for dw1 ``conv3x3_dw_launch`` (the dw kernel and its split
-reduction) at B 2, 128³, 32→32; B 2, 32³, 128→128; B 2, 16³, 256→256; for v3
+MMAs), ``CONV3D_PHASES`` for conv3d (in ``conv3x3_ndhwc.cuh``: the same
+three phases), ``V2M_PHASES`` for v2m (in ``conv3x3_stats.cuh``: 1 the halo
+copies and their transpose, 2 the weight copies, 4 the MMAs),
+``V2_PHASES`` for v2 (in ``conv3x3_stats_v2.cuh``: the same three phases),
+``S2_PHASES`` for s2 (in ``conv3x3_s2_stats.cuh``: 1 the raw plane copies
+and their transpose, 2 the weight copies, 4 the MMAs), ``DW2_PHASES`` for
+dw2 (in ``conv3x3_dw_s2.cuh``: 1 the x staging, 2 the g staging, 4 the
+MMAs). This builds the source (this tree's, or another checkout's with
+``--source``) four times, as probe libraries that ``#define`` the mask to
+7, 6, 5 and 3 and then ``#include`` the source, and times each library's
+launch entry with CUDA events on the same random inputs: for v1
+``conv3x3_stats_v1_launch`` (the conv kernel and its moment reduction) at B
+2, 128³, 32→32; B 2, 32³, 128→128; B 1, 8³, 320→320; for dw1
+``conv3x3_dw_launch`` (the dw kernel and its split reduction) at B 2, 128³,
+32→32; B 2, 32³, 128→128; B 2, 16³, 256→256; for v3
 ``conv3x3_ndhwc_stats_launch`` (the conv kernel and its moment reduction) at
 the kernel bench's ``fine_l2`` (B 1, 32³, 128→128) and ``fine_l3`` (B 1,
-16³, 256→256); for v2m ``conv3x3_stats_launch`` (the conv kernel and its
-moment reduction) at the same two and at B 2, 128³, 32→32, for v2
+16³, 256→256); for conv3d ``conv3x3_ndhwc_launch`` at the kernel bench's
+``fine_l0`` (B 1, 128³, 32→32) and ``fine_l2``; for v2m
+``conv3x3_stats_launch`` (the conv kernel and its moment reduction) at
+``fine_l2``, ``fine_l3`` and B 2, 128³, 32→32, for v2
 ``conv3x3_stats_v2_launch`` at the same three, for s2
 ``conv3x3_s2_stats_launch`` at fine_kits' level-0, 2 and 3 down convs, x
 (2, 128, 32, 128, 128)→64, (2, 32, 128, 32, 32)→256 and (2, 16, 256, 16,
@@ -40,9 +44,9 @@ loads); for dw2 ``conv3x3_s2_dw_launch`` (the dw kernel and its split
 reduction) at the four main-path levels of fine_kits' down convs, x (2, 128,
 32, 128, 128)→64, (2, 64, 64, 64, 64)→128, (2, 32, 128, 32, 32)→256 and (2,
 16, 256, 16, 16)→320. A phase's share is 1 − t(without it) / t(all). A
-build without a phase computes a wrong output: only its time is read. Prints one JSON object with the ms per mask, the
-shares and the card's name and power limit (also written to ``--out``).
-Needs a GPU and nvcc.
+build without a phase computes a wrong output: only its time is read.
+Prints one JSON object with the ms per mask, the shares and the card's name
+and power limit (also written to ``--out``). Needs a GPU and nvcc.
 """
 
 from __future__ import annotations
@@ -58,7 +62,8 @@ from pathlib import Path
 import torch
 
 from runet_tpu_torch.kernels import build
-from runet_tpu_torch.kernels.conv_common import _CONV_DW_API, _CONV_STATS_API, pack_weight
+from runet_tpu_torch.kernels.conv_common import (_CONV_API, _CONV_DW_API, _CONV_STATS_API,
+                                                 pack_weight)
 from runet_tpu_torch.utils.health import card_line
 
 
@@ -168,8 +173,10 @@ def _s2_launcher(libs, shape, gen):
     return _conv_stats_launcher("conv3x3_s2_stats", libs, tuple(x_shape), cout, 2, gen)
 
 
-def _v3_launcher(libs, shape, gen):
-    """A launch of one v3 probe library at (B, edge, Cin, Cout), x NDHWC."""
+def _ndhwc_launcher(prefix, stats, libs, shape, gen):
+    """A launch of one NDHWC conv probe library, whose C entries start with
+    ``prefix``, at (B, edge, Cin, Cout), with the moment scratch where
+    ``stats``."""
     B, e, cin, cout = shape
     dev = torch.device("cuda")
     x = torch.randn((B, e, e, e, cin), generator=gen, device=dev).to(torch.bfloat16)
@@ -177,19 +184,20 @@ def _v3_launcher(libs, shape, gen):
          ).to(torch.bfloat16)
     packed = pack_weight(k)
     cout_p, cin_p = packed.shape[1], packed.shape[2]
-    nblk = int(next(iter(libs.values())).conv3x3_ndhwc_stats_nblk(e, e, e))
     y = torch.empty((B, e, e, e, cout), dtype=torch.bfloat16, device=dev)
-    psum = torch.empty((B, cout_p, nblk), dtype=torch.float32, device=dev)
-    psq = torch.empty_like(psum)
-    sums = torch.empty((B, cout), dtype=torch.float32, device=dev)
-    sqs = torch.empty_like(sums)
+    scratch = [None] * 4
+    if stats:
+        nblk = int(getattr(next(iter(libs.values())), f"{prefix}_nblk")(e, e, e))
+        psum = torch.empty((B, cout_p, nblk), dtype=torch.float32, device=dev)
+        sums = torch.empty((B, cout), dtype=torch.float32, device=dev)
+        scratch = [psum, torch.empty_like(psum), sums, torch.empty_like(sums)]
+    ptrs = [None if t is None else t.data_ptr() for t in scratch]
     stream = torch.cuda.current_stream(dev).cuda_stream
 
     def launch(lib):
-        return lib.conv3x3_ndhwc_stats_launch(x.data_ptr(), packed.data_ptr(), y.data_ptr(),
-                                              psum.data_ptr(), psq.data_ptr(), sums.data_ptr(),
-                                              sqs.data_ptr(), B, e, cin, e, e, cout, cin_p,
-                                              cout_p, stream)
+        return getattr(lib, f"{prefix}_launch")(x.data_ptr(), packed.data_ptr(), y.data_ptr(),
+                                                *ptrs, B, e, cin, e, e, cout, cin_p, cout_p,
+                                                stream)
     return launch
 
 
@@ -219,7 +227,12 @@ KERNELS = {
     "v3": Kernel(build.CSRC / "conv3x3_ndhwc_stats.cu", "V3_PHASES", "conv3x3_ndhwc_stats",
                  {k: _CONV_STATS_API[k] for k in ("launch", "nblk")},
                  {"halo": 6, "weights": 5, "mma": 3},
-                 {"fine_l2": (1, 32, 128, 128), "fine_l3": (1, 16, 256, 256)}, _v3_launcher),
+                 {"fine_l2": (1, 32, 128, 128), "fine_l3": (1, 16, 256, 256)},
+                 partial(_ndhwc_launcher, "conv3x3_ndhwc_stats", True)),
+    "conv3d": Kernel(build.CSRC / "conv3x3_ndhwc.cu", "CONV3D_PHASES", "conv3x3_ndhwc",
+                     {"launch": _CONV_API["launch"]}, {"halo": 6, "weights": 5, "mma": 3},
+                     {"fine_l0": (1, 128, 32, 32), "fine_l2": (1, 32, 128, 128)},
+                     partial(_ndhwc_launcher, "conv3x3_ndhwc", False)),
     "v2m": Kernel(build.CSRC / "conv3x3_stats.cu", "V2M_PHASES", "conv3x3_stats",
                   {k: _CONV_STATS_API[k] for k in ("launch", "nblk")},
                   {"halo": 6, "weights": 5, "mma": 3},

@@ -106,12 +106,20 @@ def test_fused_norm_parts_and_shapes():
 # ---- conv3d ----
 
 
-@pytest.mark.parametrize("shape,cout", [((4, 16, 128, 16), 24), ((2, 8, 128, 8), 8)])
+@pytest.mark.parametrize("shape,cout", [((4, 16, 128, 16), 24), ((2, 8, 128, 8), 8),
+                                        ((2, 8, 17, 16), 24)])
 def test_attic_conv_plain_matches_pallas(shape, cout):
+    """The Pallas kernel takes W % 128 == 0 only: a narrower W (17, the
+    CUDA kernel's narrowest 8 x 32 tile) runs it on x zero-padded on the
+    right to 128 columns, which puts at column W the zero that SAME padding
+    puts there, and keeps the first W output columns."""
     rng = np.random.default_rng(0)
     x = rng.normal(size=shape).astype(np.float32)
     w = (rng.normal(size=(3, 3, 3, shape[-1], cout)) * 0.1).astype(np.float32)
-    want = _np(jax_conv3d.conv3x3x3_same(jnp.asarray(x), jnp.asarray(w), interpret=True))
+    W = shape[2]
+    xp = np.pad(x, [(0, 0), (0, 0), (0, -W % 128), (0, 0)])
+    want = _np(jax_conv3d.conv3x3x3_same(jnp.asarray(xp), jnp.asarray(w),
+                                         interpret=True))[:, :, :W]
     got = conv3d.conv3x3x3_same(torch.from_numpy(x), torch.from_numpy(w))
     np.testing.assert_allclose(got.numpy(), want, atol=1e-4)
     np.testing.assert_allclose(conv3d.reference_conv3x3x3(torch.from_numpy(x),
@@ -158,6 +166,17 @@ def test_attic_conv_function_at_an_odd_shape_matches_autograd(dtype):
             torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
         else:
             assert ((got - want).abs() <= 2.0 ** -7 * want.abs().max()).all()
+
+
+def test_conv3d_tile_table():
+    """The CUDA kernel's block tile switches at W = 16, and above it takes 64
+    output channels where the packed Cout is a multiple of 64."""
+    assert [conv3d.conv3d_tile(w, 32) for w in (1, 16, 17, 128)] == [
+        (16, 16, 32), (16, 16, 32), (8, 32, 32), (8, 32, 32)]
+    assert [conv3d.conv3d_tile(w, 64) for w in (8, 16, 17, 128)] == [
+        (16, 16, 32), (16, 16, 32), (8, 32, 64), (8, 32, 64)]
+    assert [conv3d.conv3d_tile(40, cp) for cp in (32, 64, 96, 128, 256, 320)] == [
+        (8, 32, 32), (8, 32, 64), (8, 32, 32), (8, 32, 64), (8, 32, 64), (8, 32, 64)]
 
 
 def test_attic_conv_gate_matches_jax_and_cpu_is_not_applicable():

@@ -1041,12 +1041,27 @@ def _ndhwc_inputs(shape, cout, seed, device):
     return x.to(device, torch.bfloat16), w.to(device, torch.bfloat16)
 
 
-@pytest.mark.parametrize("D,H,W,C,Cout", [
+# The attic conv's tile follows W and the packed Cout: 16 rows x 16 columns
+# x 32 channels where W <= 16, else 8 x 32 x 64 where Cout_pad % 64 == 0 and
+# 8 x 32 x 32 where it is 32 (``conv3d.conv3d_tile``); each (16-channel
+# chunk, kd plane) phase comes by TMA copies where C % 8 == 0 and x is
+# 16-byte aligned (the halo plane by element loads otherwise).
+_ATTIC_CONV_SHAPES = [
     (7, 13, 29, 5, 11),       # no multiple of 8 anywhere: element loads
-    (4, 8, 64, 16, 32),       # vector loads, whole tiles
+    (4, 8, 64, 16, 32),       # TMA copies, whole tiles
     (3, 9, 40, 24, 40),       # Cin % 16 = 8: a half-empty chunk; Cout ragged
     (2, 5, 7, 70, 33),        # tiny extents, Cin % 8 != 0 past 64 channels
-])
+    (4, 12, 16, 64, 64),      # W = 16: the widest volume of the 16 x 16 tile
+    (4, 12, 17, 64, 64),      # W = 17: the narrowest of the 8 x 32 tiles (64 channels)
+    (5, 13, 16, 128, 96),     # H = 13: a ragged 16-row tile
+    (3, 9, 33, 32, 80),       # Cout 80: Cout_pad 96 takes the 32-channel tile; W = 33
+    (4, 10, 40, 32, 64),      # Cout 64 at W > 16: the 64-channel tile; a ragged column tile
+    (2, 9, 48, 56, 64),       # Cin % 16 = 8 in the 64-channel tile
+    (1, 1, 1, 16, 32),        # one voxel: every tap but the centre reads zero fill
+]
+
+
+@pytest.mark.parametrize("D,H,W,C,Cout", _ATTIC_CONV_SHAPES)
 def test_attic_conv_kernel_matches_plain(cuda, D, H, W, C, Cout):
     from runet_tpu_torch.kernels.attic import conv3d
 
@@ -1055,6 +1070,65 @@ def test_attic_conv_kernel_matches_plain(cuda, D, H, W, C, Cout):
     want = conv3d.conv3x3x3_same_plain(x, w)
     torch.cuda.synchronize()
     assert_y_close(got, want)
+
+
+@pytest.mark.parametrize("D,H,W,C,Cout", _ATTIC_CONV_SHAPES)
+def test_attic_conv_element_loads_equal_tma_loads(cuda, D, H, W, C, Cout):
+    """x one element past a 16-byte boundary takes the element-load
+    instance, which fills the cells the TMA copies fill: y keeps its bits."""
+    from runet_tpu_torch.kernels.attic import conv3d
+
+    x, w = _ndhwc_inputs((D, H, W, C), Cout, 33, cuda)
+    packed = pack_weight(w)
+    assert torch.equal(conv3d.conv3x3x3_same(_at_odd_offset(x), w, packed),
+                       conv3d.conv3x3x3_same(x, w, packed))
+
+
+def _attic_digest(shape, device):
+    """sha256 of y's bytes from numpy inputs (seed 32) at (D, H, W, C, Cout)."""
+    import hashlib
+
+    from runet_tpu_torch.kernels.attic import conv3d
+
+    D, H, W, C, Cout = shape
+    x, w = _ndhwc_inputs((D, H, W, C), Cout, 32, device)
+    return hashlib.sha256(conv3d.conv3x3x3_same(x, w).cpu().view(torch.int16).numpy()
+                          .tobytes()).hexdigest()
+
+
+# Digests (``_attic_digest``) recorded from the kernel that staged each
+# 16-channel chunk's three kd planes and 27 taps synchronously in 8 x 32 x
+# 32 tiles, before the tiles followed W and Cout_pad and TMA filled a ring
+# of kd planes, on an NVIDIA H100 80GB HBM3.
+_ATTIC_DIGESTS = {
+    (7, 13, 29, 5, 11):
+        "1e5c43f3d24b061fcf290ad409e8cf4e1b86a1a11bfacafbcd03bfc943e1211a",
+    (4, 8, 64, 16, 32):
+        "b65ef2e6f86165898fd33aa8633ab2c0052cf1202af137abc76b96b800ac6bac",
+    (3, 9, 40, 24, 40):
+        "76df1104adfc2fe3f7fb560c5401c0352d522c8e50b728532e358f584d04d711",
+    (2, 5, 7, 70, 33):
+        "2573802e9f20c88fc11f02478fed1e98160e5fbaac92ee2e08f49314d745ede2",
+    (4, 12, 16, 64, 64):
+        "b957d55edcd68a18983fcfc323368732e0a2315a23d5aebe6fcdbad3c037a986",
+    (4, 12, 17, 64, 64):
+        "96445a634de9d9a4a105eba17f359dacce8e988420f79cb5849d998bcec877fd",
+    (5, 13, 16, 128, 96):
+        "d2f4bc938bb88cd1bbce3ac7e3cd6cff96151463d816d67bf8d5f4d6ea2e8f94",
+    (3, 9, 33, 32, 80):
+        "7e3f936d8c0f01e8dbacaf1068cfffc5a51b90484535f6ccbf6a4f389b2ff707",
+    (4, 10, 40, 32, 64):
+        "648ae4dbf4c38607cba9f003a19cef1a6a1e43c2d885c4c324db301020d975ad",
+    (2, 9, 48, 56, 64):
+        "1d6658420848b7f5a8b36a895f3658ef41cf5f90048e1b855906b522ae86d25e",
+    (1, 1, 1, 16, 32):
+        "67fc65a32238877c8fe4cdf072d94c5c83effb5414d0c86cd2c500de1d58000c",
+}
+
+
+@pytest.mark.parametrize("shape", _ATTIC_CONV_SHAPES)
+def test_conv3x3x3_same_keeps_its_recorded_bits(cuda, shape):
+    assert _attic_digest(shape, cuda) == _ATTIC_DIGESTS[shape]
 
 
 def test_attic_conv_kernel_reads_an_unaligned_view(cuda):

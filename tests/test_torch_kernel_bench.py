@@ -198,6 +198,42 @@ def test_chip_smoke_kernel_lines_split_row_4_by_output_width():
     assert "ms_by_class" not in lines["conv3x3_dw"] and lines["conv3x3_dw"]["element_ms"] == 3.0
 
 
+def test_chip_smoke_kernel_lines_split_row_7_by_geometry():
+    """Row 7 (the attic conv) has no main-path shape: its ``kernels`` entry
+    carries its sums by the kernel bench's geometry, with the CUDA-graph
+    times where every shape of the geometry has them, and the untimed attic
+    cases count only in ``max_abs_err``."""
+    import chip_smoke
+
+    def case(x_shape, cout, ms, graph=True):
+        return {"path": "kernel_bench", "x_shape": list(x_shape), "cout": cout, "launches": 30,
+                "reused": False, "max_abs_err": 0.01, "rel_err": 0.0, "ms": ms,
+                "plain_ms": 10 * ms, "library_ms": 2 * ms, "bound_ms": ms / 4,
+                "bound_by": "operations",
+                **({"graph_ms": ms / 2, "graph_library_ms": ms} if graph else {})}
+
+    cases = [case((1, 128, 128, 128, 32), 32, 0.5), case((1, 64, 64, 64, 64), 64, 0.25),
+             case((1, 32, 32, 32, 128), 128, 0.125), case((1, 16, 16, 16, 256), 256, 0.0625),
+             case((1, 160, 192, 256, 32), 32, 2.0),
+             {"path": "attic", "x_shape": [4, 12, 17, 64], "cout": 64, "launches": 0,
+              "reused": False, "max_abs_err": 0.03, "rel_err": 0.0, "tag": "W 17"}]
+    lines = {k["name"]: k for k in chip_smoke.kernel_lines({"conv3x3_ndhwc": cases},
+                                                           {"kernel_bench": {}})}
+    row7 = lines["conv3x3_ndhwc"]
+    assert row7["ms_by_class"]["fine_l0"] == {"shapes": 1, "ms": 0.5, "library_ms": 1.0,
+                                              "bound_ms": 0.125, "graph_ms": 0.25,
+                                              "graph_library_ms": 0.5}
+    assert list(row7["ms_by_class"]) == ["fine_l0", "fine_l1", "fine_l2", "fine_l3", "roi_l0"]
+    assert all(c["shapes"] == 1 for c in row7["ms_by_class"].values())
+    assert row7["ms"] == 2.9375 and row7["graph_ms"] == 2.9375 / 2
+    assert row7["max_abs_err"] == 0.03 and row7["shapes_timed"] == 5
+    assert row7["replaces"] == "runet_tpu/kernels/attic/conv3d.py:46"
+    cases[0] = case((1, 128, 128, 128, 32), 32, 0.5, graph=False)
+    row7 = chip_smoke.kernel_lines({"conv3x3_ndhwc": cases}, {"kernel_bench": {}})[0]
+    assert "graph_ms" not in row7 and "graph_ms" not in row7["ms_by_class"]["fine_l0"]
+    assert row7["ms_by_class"]["roi_l0"]["graph_ms"] == 1.0
+
+
 @pytest.mark.parametrize("iters,reps", [(30, 3), (4, 1)])
 def test_chip_smoke_replay_counting_adds_the_graph_replays(monkeypatch, iters, reps):
     """A step that launches two stats kernels, timed by a stand-in with
@@ -360,6 +396,30 @@ def test_phase_probe_v3_exits_nonzero_without_cuda(no_cuda, tmp_path):
     assert not out.exists()
 
 
+def test_phase_probe_conv3d_defines_its_mask_and_includes_the_source(tmp_path):
+    from runet_tpu_torch.kernels import build
+    from runet_tpu_torch.utils import phase_probe
+
+    src = tmp_path / "k.cu"
+    text = phase_probe.probe_source(src, 5, "CONV3D_PHASES")
+    assert text.splitlines() == ["#define CONV3D_PHASES 5", f'#include "{src.resolve()}"']
+    conv3d = phase_probe.KERNELS["conv3d"]
+    assert conv3d.macro == "CONV3D_PHASES" and conv3d.source.name == "conv3x3_ndhwc.cu"
+    assert conv3d.source.exists() and '#include "conv3x3_ndhwc.cuh"' in conv3d.source.read_text()
+    assert "#ifndef CONV3D_PHASES" in (build.CSRC / "conv3x3_ndhwc.cuh").read_text()
+    assert conv3d.without == {"halo": 6, "weights": 5, "mma": 3}
+    assert conv3d.geometries == {"fine_l0": (1, 128, 32, 32), "fine_l2": (1, 32, 128, 128)}
+    assert set(conv3d.api) == {"launch"} and conv3d.prefix == "conv3x3_ndhwc"
+
+
+def test_phase_probe_conv3d_exits_nonzero_without_cuda(no_cuda, tmp_path):
+    from runet_tpu_torch.utils import phase_probe
+
+    out = tmp_path / "phases.json"
+    assert phase_probe.main(["--kernel", "conv3d", "--out", str(out)]) != 0
+    assert not out.exists()
+
+
 def test_phase_probe_v2m_defines_its_mask_and_includes_the_source(tmp_path):
     from runet_tpu_torch.kernels import build
     from runet_tpu_torch.utils import phase_probe
@@ -501,6 +561,30 @@ def test_bit_compare_time_of_the_stride_2_dw_kernel_exits_nonzero_without_cuda(n
     argv = [str(tmp_path / "conv3x3_s2_dw.cu"), "--log", str(log), "--time", "--out", str(out)]
     assert bit_compare.main(argv) != 0
     assert not out.exists()
+
+
+def test_bit_compare_reads_the_attic_conv_lines_in_its_own_order():
+    """The attic conv's lines give x as (B, D, H, W, C); its default shapes
+    cover each tile and edge and the kernel bench's five geometries."""
+    from runet_tpu_torch.kernels.attic import conv3d
+    from runet_tpu_torch.utils import bit_compare
+    from runet_tpu_torch.utils.kernel_bench import GEOMETRIES
+
+    log = "\n".join([
+        "[kernels] conv3x3_ndhwc kernel_bench x(1, 128, 128, 128, 32)->32 x30: err 0.0156",
+        "[kernels] conv3x3_ndhwc_stats kernel_bench x(1, 32, 32, 32, 128)->128 x30: err 0.01",
+        "[attic] conv3x3_ndhwc W 17 x(4, 12, 17, 64)->64: err 0.0078",
+        "[kernels] conv3x3_ndhwc kernel_bench x(1, 160, 192, 256, 32)->32 x10: err 0.0156",
+    ])
+    assert bit_compare.logged_shapes(log, "conv3x3_ndhwc") == [(1, 128, 128, 128, 32, 32),
+                                                               (1, 160, 192, 256, 32, 32)]
+    assert "conv3x3_ndhwc" in bit_compare.KERNELS
+    shapes = bit_compare.NDHWC_DEFAULT_SHAPES
+    assert len(set(shapes)) == len(shapes) and all(len(s) == 6 for s in shapes)
+    assert {(1, D, H, W, C, cout) for D, H, W, C, cout, _ in GEOMETRIES.values()} <= set(shapes)
+    tiles = {conv3d.conv3d_tile(s[3], -(-s[5] // 32) * 32) for s in shapes}
+    assert tiles == {(16, 16, 32), (8, 32, 32), (8, 32, 64)}
+    assert any(s[4] % 8 for s in shapes) and any(s[4] % 16 == 8 for s in shapes)
 
 
 def test_bit_compare_exits_nonzero_without_cuda(no_cuda, tmp_path):
