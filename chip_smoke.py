@@ -6,16 +6,27 @@ Phases (any failure exits non-zero; nothing is caught and printed over):
 
 1. report the card (name and power limit from nvidia-smi);
 2. build the ten CUDA kernels from ``runet_tpu_torch/kernels/csrc`` (one
-   nvcc per source, started together);
+   nvcc per source, started together) and, beside them, the native host
+   tier from ``runet_tpu_torch/native/cc3d.cpp`` (g++);
 3. serve: load the committed coarse and fine_kits weights and run
    ``predict_cases`` over three KiTS-scale phantoms (512x512x160 at
    0.78125x0.78125x3 mm, seeds 0-2), then ``predict_case`` on a 192x192x64
    phantom gated on Dice (kidney_composite > 0.96, tumor > 0.82). Every
    kernel's launch counter is set to 0 just before this phase and read just
    after; the forward kernels must have launched. The shape of every launch
-   is recorded (``launch_shapes``). The three KiTS cases from
-   ``predict_cases`` (two worker threads) must equal serial ``predict_case``
-   voxel for voxel;
+   is recorded (``launch_shapes``). The native tier's call counters are set
+   to 0 with them: its components, component stats, fused keep-largest and
+   2-bit ROI paste (K = 3) must each have been called. The three KiTS cases
+   from ``predict_cases`` (two worker threads) must equal serial
+   ``predict_case`` voxel for voxel;
+3a. serve_http: the same full-width bundles behind
+   ``infer/http_serve.py``'s ``make_server(port=0)`` in a thread: ``GET
+   /healthz``, ``POST /v1/predict`` and ``/v1/report`` with the 192x192x64
+   phantom as int16 ``.nii.gz``, and a garbage body that must get 400. The
+   labelmap must equal an in-process ``predict_case`` of the same volume
+   voxel for voxel, both reports' volumetry ``volumetry`` of it; the
+   stride-1 and stride-2 kernels and the same native calls must have run
+   between the first request and the last, and no attic kernel;
 3b. serve, renal_anatomy: the committed coarse and renal_anatomy (5 classes)
    weights, once per ``fused_kernel`` in ("v2m", "v2", "v1"): ``warmup_cases``
    (seconds printed), ``predict_case`` on the 5-class 192x192x64 phantom
@@ -29,7 +40,8 @@ Phases (any failure exits non-zero; nothing is caught and printed over):
    where the two kidney ROIs share a bucket and must run as one batched
    forward). Counters are set to 0 before each value's
    cases and read after: the stride-1 kernel of the value in force must
-   have launched and the other two must not;
+   have launched and the other two must not, and the native tier must have
+   done the components and the 4-bit ROI paste (K = 5);
 4. reference: the fine_kits U-Net, and the renal_anatomy U-Net under "v2"
    and "v1", on the card against the same weights on the CPU (plain PyTorch
    path) at a 64³ input;
@@ -330,7 +342,12 @@ def phase_build():
     from runet_tpu_torch.kernels import build, fused_block, strided_conv
     from runet_tpu_torch.kernels.attic import conv3d, conv_v3_deep, fused_norm
 
+    from runet_tpu_torch.utils import native
+
     t0 = time.monotonic()
+    # g++ for the host tier runs beside the ten nvcc builds.
+    host = threading.Thread(target=native.available)
+    host.start()
     logs = build.build([fused_block.SOURCE, strided_conv.SOURCE, fused_block.DW_SOURCE,
                         strided_conv.DW_SOURCE, fused_block.V2_SOURCE, fused_block.V1_SOURCE,
                         conv3d.SOURCE, conv_v3_deep.SOURCE, fused_norm.STATS_SOURCE,
@@ -339,7 +356,30 @@ def phase_build():
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"[build] {name}: {line.strip()}")
-    log(f"[build] kernels ready in {time.monotonic() - t0:.1f} s")
+    host.join()
+    if not native.available():
+        raise AssertionError(f"the native host tier did not build:\n{native.build_error()}")
+    log(f"[build] kernels and native host tier ({native.library_path().name}) ready in "
+        f"{time.monotonic() - t0:.1f} s")
+
+
+NATIVE_SERVE = ("label_components_3d", "component_stats_3d", "keep_largest_in_boxes_3d")
+
+
+def native_calls(phase: str, paste: str) -> dict:
+    """The native tier's calls since the last reset; fails the run unless
+    the tier is loaded and the components, their boxes, the fused keep and
+    the ROI paste of the label width in force (``paste``) all went through
+    it (a run that fell back to scipy or numpy fails)."""
+    from runet_tpu_torch.utils import native
+
+    calls = native.call_counts()
+    log(f"[{phase}] native host tier calls: {calls}")
+    missing = [k for k in (*NATIVE_SERVE, paste) if calls[k] <= 0]
+    if not native.available() or missing:
+        raise AssertionError(f"{phase}: the native host tier was not used for {missing} "
+                             f"(available: {native.available()})")
+    return calls
 
 
 def phase_serve(dev):
@@ -350,6 +390,7 @@ def phase_serve(dev):
     from runet_tpu_torch.infer.cascade import ModelBundle, predict_case, predict_cases
     from runet_tpu_torch.kernels import fused_block, strided_conv
     from runet_tpu_torch.params import load_model
+    from runet_tpu_torch.utils import native
     from runet_tpu_torch.utils.timing import PhaseTimer
 
     t0 = time.monotonic()
@@ -361,6 +402,7 @@ def phase_serve(dev):
     log(f"[serve] set-up (weights, phantoms) {time.monotonic() - t0:.1f} s")
 
     reset_counts()
+    native.reset_call_counts()
     torch.cuda.synchronize()
     with launch_shapes() as shapes:
         t0 = time.monotonic()
@@ -378,6 +420,7 @@ def phase_serve(dev):
         q_sec = time.monotonic() - t1
         torch.cuda.synchronize()
     counts = kernel_counts()
+    native_calls("serve", "paste_crumbs_3d")
 
     # The pipelined results (two worker threads sharing the modules' packed
     # weight caches and the cached matrices) against serial predict_case.
@@ -406,7 +449,95 @@ def phase_serve(dev):
     for name in (fused_block.SOURCE, strided_conv.SOURCE):
         if counts[name] <= 0:
             raise AssertionError(f"kernel {name} was not launched on the serving path")
-    return counts, shapes, fm
+    return counts, shapes, fm, (coarse, fine, fcfg.cascade)
+
+
+def phase_serve_http(dev, coarse, fine, cascade):
+    """The HTTP entry point over the serve phase's full-width coarse and
+    fine_kits bundles: ``make_server(port=0)`` in a thread, ``GET /healthz``,
+    ``POST /v1/predict`` and ``/v1/report`` with the quality phantom as
+    ``.nii.gz``, and a garbage body that must get 400. The labelmap must
+    equal an in-process ``predict_case`` of the same volume voxel for voxel,
+    the report's volumetry ``volumetry`` of it, and the stride-1 and
+    stride-2 kernels must have launched in the phase (counts set to 0 just
+    before the first request, read after the last); returns the launch
+    counts and shapes."""
+    import urllib.error
+    import urllib.request
+
+    from runet_tpu_torch.data.phantom import make_phantom
+    from runet_tpu_torch.eval.surface import volumetry
+    from runet_tpu_torch.infer.cascade import predict_case
+    from runet_tpu_torch.infer.http_serve import InferenceService, make_server
+    from runet_tpu_torch.io.nifti import volume_from_bytes, volume_to_bytes
+    from runet_tpu_torch.kernels import fused_block, strided_conv
+    from runet_tpu_torch.utils import native
+
+    img, _ = make_phantom(QUALITY_SHAPE, CASE_SPACING, num_classes=3, seed=QUALITY_SEED)
+    body = volume_to_bytes(np.rint(img).astype(np.int16), spacing=CASE_SPACING, gz=True)
+    vol = volume_from_bytes(body)
+    service = InferenceService(fine, coarse, cascade, device=dev)
+    server = make_server(service, port=0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    base = "http://%s:%d" % server.server_address[:2]
+
+    def call(path, data=None):
+        t0 = time.monotonic()
+        req = urllib.request.Request(base + path, data=data)
+        try:
+            with urllib.request.urlopen(req, timeout=300) as resp:
+                out = resp.status, dict(resp.headers), resp.read()
+        except urllib.error.HTTPError as e:
+            out = e.code, dict(e.headers), e.read()
+        log(f"[serve_http] {'POST' if data is not None else 'GET'} {path}: {out[0]}, "
+            f"{len(out[2])} bytes in {time.monotonic() - t0:.3f} s")
+        return out
+
+    reset_counts()
+    native.reset_call_counts()
+    torch.cuda.synchronize()
+    try:
+        with launch_shapes() as shapes:
+            health = json.loads(call("/healthz")[2])
+            p_status, p_headers, p_body = call("/v1/predict", body)
+            r_status, _, r_body = call("/v1/report", body)
+            bad_status, _, bad_body = call("/v1/predict", b"not a NIfTI volume")
+            torch.cuda.synchronize()
+        counts = kernel_counts()
+    finally:
+        server.shutdown()
+        thread.join(timeout=30)
+        server.server_close()
+    native_calls("serve_http", "paste_crumbs_3d")
+    log(f"[serve_http] body {len(body)} bytes ({QUALITY_SHAPE} int16 .nii.gz); healthz {health}")
+    want_health = {"status": "ok", "device": torch.cuda.get_device_name(dev), "cascade": True,
+                   "num_classes": 3}
+    if health != want_health:
+        raise AssertionError(f"serve_http: /healthz gave {health}, expected {want_health}")
+    if (p_status, r_status, bad_status) != (200, 200, 400):
+        raise AssertionError(f"serve_http: statuses {p_status} {r_status} {bad_status}, "
+                             f"expected 200 200 400 ({bad_body[:200]!r})")
+    got = volume_from_bytes(p_body)
+    want = predict_case(coarse, fine, vol.data, vol.spacing, cascade, device=dev)
+    if got.data.shape != want.shape or not np.array_equal(got.data, want):
+        raise AssertionError(f"serve_http: /v1/predict's labelmap differs from in-process "
+                             f"predict_case on {int((got.data != want).sum())} voxels")
+    vols = volumetry(want, vol.spacing, 3)
+    for tag, report in (("X-Runet-Report", json.loads(p_headers["X-Runet-Report"])),
+                        ("/v1/report", json.loads(r_body))):
+        shown = {k: report[k] for k in vols}
+        if shown != vols or report["shape"] != list(QUALITY_SHAPE):
+            raise AssertionError(f"serve_http: {tag} {report} against volumetry {vols}")
+        log(f"[serve_http] {tag}: {report}")
+    log("[serve_http] labelmap equals in-process predict_case voxel for voxel; both reports' "
+        "volumetry equals volumetry() of it")
+    log(f"[serve_http] kernel launches in this phase: {counts}")
+    no_attic(counts, "serve_http")
+    for name in (fused_block.SOURCE, strided_conv.SOURCE):
+        if counts[name] <= 0:
+            raise AssertionError(f"serve_http: kernel {name} was not launched")
+    return counts, shapes
 
 
 RENAL_GATE = {"kidney_composite": 0.93, "tumor": 0.80, "dice_c3": 0.40, "dice_c4": 0.05}
@@ -439,6 +570,7 @@ def phase_serve_renal(dev):
     from runet_tpu_torch.infer.cascade import predict_case
     from runet_tpu_torch.infer.ensemble import ensemble_bundle
     from runet_tpu_torch.infer.warmup import warmup_cases
+    from runet_tpu_torch.utils import native
 
     q_img, q_seg = make_phantom(QUALITY_SHAPE, CASE_SPACING, num_classes=5, seed=13,
                                 vessel_radius=2.5)
@@ -477,6 +609,7 @@ def phase_serve_renal(dev):
         models[version] = fmodel
         cas = fcfg.cascade
         reset_counts()
+        native.reset_call_counts()
         torch.cuda.synchronize()
         with launch_shapes() as shapes:
             warm = warmup_cases(coarse, fine, [(q_img, CASE_SPACING)], cas, device=dev)
@@ -504,6 +637,7 @@ def phase_serve_renal(dev):
                 finally:
                     cascade_mod._roi_program_batch = real
         counts = kernel_counts()
+        native_calls(f"serve-renal {version}", "paste_nibbles_3d")
         labels[version] = pred
         log(f"[serve-renal] fused_kernel={version}: warmup_cases {warm}; quality phantom "
             f"{QUALITY_SHAPE} {sec:.3f} s, Dice {gate(version, pred)}")
@@ -1469,8 +1603,8 @@ def kernel_lines(measured, path_counts):
     shapes timed (each once, whatever the number of paths that launched it;
     ``timed_ms_by_path`` splits ``ms`` by the path that first launched the
     shape); ``path_ms`` weighs each shape's time by its launches on that
-    path; ``launches`` is over every path driven (the four main paths and
-    the kernel bench, split in ``launches_by_path``; the bench's count the
+    path; ``launches`` is over every path driven (the four main paths, the
+    HTTP entry point and the kernel bench, split in ``launches_by_path``; the bench's count the
     kernels its CUDA graphs replayed). ``max_abs_err`` also covers the
     attic phase's untimed cases. ``library_ms`` is null where no single
     library call computes the kernel's function (the instance-norm apply
@@ -1601,7 +1735,9 @@ def main() -> int:
     from runet_tpu_torch.config import get_config
 
     phase_build()
-    serve_counts, serve_shapes, fine = phase_serve(dev)
+    serve_counts, serve_shapes, fine, bundles = phase_serve(dev)
+    http_counts, http_shapes = phase_serve_http(dev, *bundles)
+    del bundles
     phase_reference(fine, dev)
     del fine
     renal_counts, renal_shapes, renal_models = phase_serve_renal(dev)
@@ -1624,7 +1760,8 @@ def main() -> int:
         del cases
         torch.cuda.empty_cache()
         bench_counts, bench_shapes = phase_kernel_bench(dev)
-        measured = phase_kernels(dev, {"serve": serve_shapes, "train": train_shapes,
+        measured = phase_kernels(dev, {"serve": serve_shapes, "serve_http": http_shapes,
+                                       "train": train_shapes,
                                        "serve_renal": renal_shapes,
                                        "train_renal": rtrain_shapes,
                                        "kernel_bench": bench_shapes})
@@ -1632,7 +1769,8 @@ def main() -> int:
             measured[name] += cases
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
-    kernels = kernel_lines(measured, {"serve": serve_counts, "train": train_counts,
+    kernels = kernel_lines(measured, {"serve": serve_counts, "serve_http": http_counts,
+                                      "train": train_counts,
                                       "serve_renal": renal_counts,
                                       "train_renal": rtrain_counts,
                                       "kernel_bench": bench_counts})

@@ -9,7 +9,8 @@ Counterpart of ``runet_tpu/infer/cascade.py``. Per case:
 4. per ROI: crop the NATIVE volume, resample the crop to the fine spacing at
    a bucketed grid, fine U-Net, argmax;
 5. one-hot back-resample of each ROI's labels to its native crop, packed;
-6. host paste into a native canvas and keep the 2 largest components.
+6. host paste into a native canvas and keep the 2 largest components,
+   both through the native C++ tier (``utils/native.py``) where it builds.
 
 The full volume never exists at fine spacing — only kidney ROIs do.
 ``InferConfig.tta`` wraps a stage's ``apply_fn`` with mirror-flip averaging
@@ -50,6 +51,7 @@ from runet_tpu_torch.preprocess.resample import (
     resample_dynamic,
     resample_labels_onehot_dynamic,
 )
+from runet_tpu_torch.utils.native import native_paste_crumbs, native_paste_nibbles
 from runet_tpu_torch.utils.timing import PhaseTimer
 
 
@@ -152,6 +154,20 @@ def _unpack_labels(packed: np.ndarray, num_classes: int, n: int) -> np.ndarray:
     if w == 4:
         return unpack_nibbles(packed, n)
     return np.asarray(packed)
+
+
+def _native_paste_packed(canvas: np.ndarray, packed: np.ndarray, lo, extent,
+                         num_classes: int) -> bool:
+    """Fused native unpack + nonzero paste of the ``extent`` prefix of a
+    packed crop at ``canvas[lo : lo + extent]``, for whichever packing
+    ``_pack_labels`` chose; False when the native tier is unavailable or the
+    labels were fetched unpacked."""
+    w = pack_width(num_classes)
+    if w == 2:
+        return native_paste_crumbs(canvas, packed, lo, extent)
+    if w == 4:
+        return native_paste_nibbles(canvas, packed, lo, extent)
+    return False
 
 
 def _labels_to_native(labels: torch.Tensor, native_shape, scale_fn, num_classes: int) -> np.ndarray:
@@ -427,6 +443,10 @@ def _predict_case(coarse, fine, image, native_spacing, cascade, postprocess, tim
                 host = fetched_memo[id(dev_packed)] = dev_packed.cpu().numpy()
             if bidx is not None:
                 host = host[bidx]
+            # One native pass over the packed bytes (nonzero lanes overwrite,
+            # as np.where below); the numpy chain only without the tier.
+            if _native_paste_packed(native_canvas, host, lo, hi - lo, fine.num_classes):
+                continue
             fetched = _unpack_labels(host, fine.num_classes, want_buf[2])
             crop_labels = fetched[: hi[0] - lo[0], : hi[1] - lo[1], : hi[2] - lo[2]]
             dst = native_canvas[lo[0]: hi[0], lo[1]: hi[1], lo[2]: hi[2]]

@@ -1,20 +1,34 @@
-"""Connected-component postprocessing on the host (scipy).
+"""Connected-component postprocessing on the host.
 
-Counterpart of ``runet_tpu/infer/postprocess.py`` without its native C++
-tier (queued in ROADMAP.md): 6-connected labeling by
-``scipy.ndimage.label``, keep the <=2 largest kidney components, and the
-component bounding boxes that seed the cascade's ROIs.
+Counterpart of ``runet_tpu/infer/postprocess.py``: 6-connected labeling,
+keep the <=2 largest kidney components, and the component bounding boxes
+that seed the cascade's ROIs. Each function goes through the port's native
+tier first (``utils/native.py``, C++ union-find over z-runs) and takes the
+scipy/numpy chain when the tier is unavailable.
 """
 
 from __future__ import annotations
 
 import numpy as np
-from scipy import ndimage
+
+from runet_tpu_torch.utils.native import (
+    native_component_stats,
+    native_keep_largest,
+    native_keep_largest_in_boxes,
+    native_label_components,
+    native_zero_nonkept,
+)
 
 
 def label_components(mask: np.ndarray) -> tuple[np.ndarray, int]:
     """6-connected 3D labeling. Returns (labels int32, num_components)."""
-    lab, n = ndimage.label(np.asarray(mask).astype(np.uint8))
+    mask = np.ascontiguousarray(np.asarray(mask).astype(np.uint8))
+    out = native_label_components(mask)
+    if out is not None:
+        return out
+    from scipy import ndimage
+
+    lab, n = ndimage.label(mask)
     return lab.astype(np.int32), int(n)
 
 
@@ -30,11 +44,23 @@ def keep_largest_components(
 ) -> np.ndarray:
     """Keep the ``max_components`` largest CCs of the foreground union and
     zero out everything else."""
-    fg = seg > 0 if foreground_classes is None else np.isin(seg, foreground_classes)
+    if foreground_classes is None:
+        # Nonzero is foreground: one fused native call over the whole
+        # volume as a single box (no int32 label volume).
+        out = np.ascontiguousarray(seg.copy())
+        if out.dtype == np.uint8:
+            box = np.asarray([[0, 0, 0, *out.shape]], np.int64)
+            if native_keep_largest_in_boxes(out, box, max_components, min_voxels):
+                return out
+        fg = seg > 0
+    else:
+        fg = np.isin(seg, foreground_classes)
     labels, n = label_components(fg)
     if n == 0:
         return seg
     out = np.ascontiguousarray(seg.copy())
+    if out.dtype == np.uint8 and native_keep_largest(out, labels, n, max_components, min_voxels):
+        return out
     sizes = component_sizes(labels, n)
     order = np.argsort(sizes)[::-1]
     keep = [i + 1 for i in order[:max_components] if sizes[i] > min_voxels]
@@ -71,15 +97,23 @@ def keep_largest_components_in_boxes(
 ) -> np.ndarray:
     """``keep_largest_components`` restricted to the (merged) ROI boxes — a
     cascade prediction is zero outside them. Component sizes are ranked
-    globally across boxes."""
+    globally across boxes. One fused native call when the canvas is a
+    C-contiguous uint8 array; the per-box label chain otherwise."""
     boxes = _merge_overlapping_boxes(boxes)
     out = seg if inplace else seg.copy()
+    if out.dtype == np.uint8 and out.flags.c_contiguous and boxes:
+        arr = np.asarray([np.concatenate([lo, hi]) for lo, hi in boxes], np.int64)
+        if native_keep_largest_in_boxes(out, arr, max_components, min_voxels):
+            return out
     crops, size_chunks = [], []
     for lo, hi in boxes:
+        # A copy: a whole-volume box would otherwise alias ``out``.
         crop = out[lo[0]:hi[0], lo[1]:hi[1], lo[2]:hi[2]].copy()
         labels, n = label_components(crop > 0)
         crops.append((crop, labels, n))
-        size_chunks.append(component_sizes(labels, n).astype(np.int64))
+        stats = native_component_stats(labels, n)
+        sizes = stats[0] if stats is not None else component_sizes(labels, n)
+        size_chunks.append(sizes.astype(np.int64))
     all_sizes = np.concatenate(size_chunks) if size_chunks else np.zeros(0, np.int64)
     k = min(max_components, all_sizes.size)
     top = np.argpartition(all_sizes, -k)[-k:] if k else np.zeros(0, np.intp)
@@ -89,10 +123,11 @@ def keep_largest_components_in_boxes(
         crop, labels, n = crops[bi]
         if n == 0:
             continue
-        keep_lut = np.zeros(n + 1, bool)
+        keep_lut = np.zeros(n + 1, np.uint8)
         local = top[(top >= offsets[bi]) & (top < offsets[bi + 1])] - offsets[bi]
-        keep_lut[local + 1] = True
-        crop[~keep_lut[labels]] = 0
+        keep_lut[local + 1] = 1
+        if crop.dtype != np.uint8 or not native_zero_nonkept(crop, labels, keep_lut):
+            crop[~keep_lut.view(np.bool_)[labels]] = 0
         out[lo[0]:hi[0], lo[1]:hi[1], lo[2]:hi[2]] = crop
     return out
 
@@ -103,13 +138,16 @@ def component_bounding_boxes(mask: np.ndarray, max_components: int = 2, min_voxe
     labels, n = label_components(mask)
     if n == 0:
         return []
-    sizes = component_sizes(labels, n)
+    stats = native_component_stats(labels, n)
+    if stats is not None:
+        sizes, all_boxes = stats
+    else:
+        from scipy import ndimage
+
+        sizes = component_sizes(labels, n)
+        objects = ndimage.find_objects(labels)
+        all_boxes = np.asarray([[s.start for s in sl] + [s.stop for s in sl] for sl in objects],
+                               np.int64)
     order = np.argsort(sizes)[::-1]
-    objects = ndimage.find_objects(labels)
-    boxes = []
-    for i in order[:max_components]:
-        if sizes[i] < min_voxels:
-            continue
-        sl = objects[i]
-        boxes.append((np.asarray([s.start for s in sl]), np.asarray([s.stop for s in sl])))
-    return boxes
+    return [(all_boxes[i, :3].copy(), all_boxes[i, 3:].copy())
+            for i in order[:max_components] if sizes[i] >= min_voxels]

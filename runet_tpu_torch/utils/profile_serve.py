@@ -7,7 +7,8 @@ phantom (512x512x160 at 0.78125x0.78125x3 mm, seed 0), then for seed 1:
 times ``predict_case`` end to end (host clock around a synchronized run),
 once more with a phase timer, and once under ``torch.profiler`` to sum the
 device time per kernel and per kind of work. Prints a JSON summary (also
-written to ``--out``) with the card's name and power limit. Needs a GPU.
+written to ``--out``) with the card's name and power limit, and the native
+host tier's calls in the timed run (``utils/native.py``). Needs a GPU.
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ from runet_tpu_torch import resolve_device
 from runet_tpu_torch.data.phantom import make_phantom
 from runet_tpu_torch.infer.cascade import ModelBundle, predict_case
 from runet_tpu_torch.params import load_model
+from runet_tpu_torch.utils import native
 from runet_tpu_torch.utils.device_time import device_rows, group_device_time
 from runet_tpu_torch.utils.timing import PhaseTimer
 
@@ -65,7 +67,9 @@ def main(argv=None):
     run()
     case_s = time.monotonic() - t0
     timer = PhaseTimer()
+    native.reset_call_counts()
     run(timer)
+    native_calls = native.call_counts()
 
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
@@ -80,6 +84,8 @@ def main(argv=None):
         "card": card,
         "case_seconds": case_s,
         "phases_seconds": timer.as_dict(),
+        "native_tier": native.available(),
+        "native_calls": native_calls,
         "profiled_wall_seconds": prof_wall,
         "device_seconds": device_us / 1e6,
         "device_busy_share_of_profiled_wall": device_us / 1e6 / prof_wall,

@@ -279,3 +279,40 @@ def test_postprocess_matches_jax():
                               jpost.component_bounding_boxes(seg > 0, 3, 8)):
         np.testing.assert_array_equal(a, c)
         np.testing.assert_array_equal(b, d)
+
+
+def _k_bundles(k):
+    """The oracle cascade with a ``k``-class fine stage."""
+    jcoarse, _, tcoarse, _ = _bundles()
+    jfine = jc.ModelBundle(_jax_class_oracle(k), {}, k, JPre(**_pp((1.0,) * 3)),
+                           JInfer(patch_size=(32,) * 3))
+    tfine = tc.ModelBundle(_torch_class_oracle(k), None, k, PreprocessConfig(**_pp((1.0,) * 3)),
+                           InferConfig(patch_size=(32,) * 3))
+    return jcoarse, jfine, tcoarse, tfine
+
+
+@pytest.mark.parametrize("k,paste", [(3, "paste_crumbs_3d"), (5, "paste_nibbles_3d")])
+def test_predict_case_native_tier_and_fallback_equal_jax(k, paste, monkeypatch):
+    """The ROI paste and the components through the native tier (crumbs for
+    K = 3, nibbles for K = 5), and through numpy/scipy with the loader at
+    None: the same labels, equal to JAX's ``predict_case``."""
+    from runet_tpu_torch.utils import native
+
+    _, seg = make_phantom((64, 64, 48), spacing=SPACING, num_classes=k, seed=0)
+    img = seg.astype(np.float32)
+    jcoarse, jfine, tcoarse, tfine = _k_bundles(k)
+    cas = CascadeConfig(**CASCADE)
+    want = jc.predict_case(jcoarse, jfine, img, SPACING, JCascade(**CASCADE))
+    native.reset_call_counts()
+    got = tc.predict_case(tcoarse, tfine, img, SPACING, cas, device="cpu")
+    counts = native.call_counts()
+    for name in ("label_components_3d", "component_stats_3d", "keep_largest_in_boxes_3d", paste):
+        assert counts[name] > 0, counts
+    np.testing.assert_array_equal(got, want)
+    assert set(np.unique(got)) == set(range(k))
+    with monkeypatch.context() as m:
+        m.setattr(native, "_load", lambda: None)
+        native.reset_call_counts()
+        fallback = tc.predict_case(tcoarse, tfine, img, SPACING, cas, device="cpu")
+        assert set(native.call_counts().values()) == {0}
+    np.testing.assert_array_equal(fallback, got)
