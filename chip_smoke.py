@@ -27,7 +27,23 @@ Phases (any failure exits non-zero; nothing is caught and printed over):
    voxel for voxel, both reports' volumetry ``volumetry`` of it; the
    stride-1 and stride-2 kernels and the same native calls must have run
    between the first request and the last, and no attic kernel;
-3b. serve, renal_anatomy: the committed coarse and renal_anatomy (5 classes)
+3b. cli: the command line, ``runet_tpu_torch.cli.main`` in-process at full
+   width: ``phantom`` (two 512x512x160 cases), ``predict`` (the pipelined
+   cascade with the committed coarse and fine_kits weights, saved with
+   their configs by ``utils/export.py``), ``evaluate --surface``, ``serve
+   --once --mesh-classes 1`` on a watch folder of one case, ``warmup
+   --shape 512 512 160``, ``mesh``, ``train --config fine_kits`` (128³,
+   batch 2) 2 steps and ``--resume`` to 4 on the phantom folder, ``export
+   --average 2`` of that run and ``predict --fine`` from the npz on one
+   case. Counters set to 0 before the phase; each command's launches and
+   wall printed. Every written labelmap must equal in-process
+   ``predict_case`` (``predict_volume`` for the fine-only command) voxel
+   for voxel, ``evaluate``'s rows ``evaluate_prediction`` of them, the
+   served report's volumetry ``volumetry`` of its labels; the export must
+   be the mean of the run's two retained checkpoints; rows 1 and 2 must
+   launch in each serving command and rows 1, 3 and 4 in training (dw
+   launches exact), no attic kernel, and the native tier's calls made;
+3c. serve, renal_anatomy: the committed coarse and renal_anatomy (5 classes)
    weights, once per ``fused_kernel`` in ("v2m", "v2", "v1"): ``warmup_cases``
    (seconds printed), ``predict_case`` on the 5-class 192x192x64 phantom
    (seed 13, vessel radius 2.5) gated on Dice (kidney_composite > 0.93,
@@ -87,7 +103,7 @@ Phases (any failure exits non-zero; nothing is caught and printed over):
    every one of the ten kernels must have launched, and every row must
    carry a finite positive ms for each kernel it names;
 9. kernel vs plain: each kernel on random inputs at every distinct shape
-   the serve, train and kernel-bench phases launched it with, against its
+   the serve, cli, train and kernel-bench phases launched it with, against its
    plain version on the same inputs, with timings (``utils/latency.py``'s
    ``chained_ms``) of kernel, plain version and the library yardstick
    (bf16 ``F.conv3d`` + sums for the forward kernels, without sums for the
@@ -183,6 +199,8 @@ PEAK_F32_FLOPS = 67e12  # H100 SXM f32 rate outside the tensor cores
 TRAIN_CASE_SHAPE = (160, 144, 128)
 TRAIN_SPACING = (0.8, 0.8, 0.8)
 TRAIN_STEPS, RESUME_STEPS = 6, 8
+CLI_CASES = 2
+CLI_TRAIN_STEPS = (2, 4)  # train, then --resume to step 4
 OVERFIT_STEPS = 20
 OVERFIT_LR = 1e-3
 OVERFIT_FRACTION = 0.75  # measured 0.581 (H100 80GB HBM3, 700 W)
@@ -305,6 +323,36 @@ def launch_shapes():
     finally:
         for m, attr, f in saved:
             setattr(m, attr, f)
+
+
+@contextmanager
+def nifti_seconds():
+    """Yields {"read": s, "write": s}: the seconds spent inside the NIfTI
+    reader's file read + gunzip (``io/nifti.py``'s ``_read_bytes``) and the
+    writer's serialization + gzip (``volume_to_bytes``) within the block,
+    summed over threads (a writer thread's time overlaps the device's)."""
+    from runet_tpu_torch.io import nifti
+
+    spent = {"read": 0.0, "write": 0.0}
+    lock = threading.Lock()
+
+    def timed(fn, key):
+        def wrapped(*a, **kw):
+            t0 = time.monotonic()
+            try:
+                return fn(*a, **kw)
+            finally:
+                with lock:
+                    spent[key] += time.monotonic() - t0
+        return wrapped
+
+    saved = nifti._read_bytes, nifti.volume_to_bytes
+    nifti._read_bytes = timed(saved[0], "read")
+    nifti.volume_to_bytes = timed(saved[1], "write")
+    try:
+        yield spent
+    finally:
+        nifti._read_bytes, nifti.volume_to_bytes = saved
 
 
 def replay_counting(scanned, seen: dict, extra: dict):
@@ -537,6 +585,161 @@ def phase_serve_http(dev, coarse, fine, cascade):
     for name in (fused_block.SOURCE, strided_conv.SOURCE):
         if counts[name] <= 0:
             raise AssertionError(f"serve_http: kernel {name} was not launched")
+    return counts, shapes
+
+
+def phase_cli(dev):
+    """The command line, ``runet_tpu_torch.cli.main`` called in-process at
+    full width: ``phantom`` (CLI_CASES cases at the KiTS geometry), the
+    committed coarse and fine_kits weights written with their configs by
+    ``save_params_npz``, ``predict`` (the pipelined cascade, two workers),
+    ``evaluate --surface``, ``serve --once --mesh-classes 1`` on a watch
+    folder of one case, ``warmup --shape``, ``mesh``, ``train --config
+    fine_kits`` (128³, batch 2) for 2 steps and ``--resume`` to 4,
+    ``export --average 2`` of that run and ``predict --fine`` from that npz
+    on one case. Counts set to 0 before the phase; each command's launches
+    are the difference around it. Every written labelmap must equal
+    in-process ``predict_case`` (``predict_volume`` for the fine-only
+    command) voxel for voxel, ``evaluate``'s rows ``evaluate_prediction`` of
+    those labels, the served report's volumetry ``volumetry`` of its labels;
+    rows 1 and 2 must launch in each serving command, rows 1, 3 and 4 in
+    training, no attic kernel anywhere, and the native tier must have run.
+    Returns the launch counts and shapes."""
+    from runet_tpu_torch import cli
+    from runet_tpu_torch.config import Config, get_config
+    from runet_tpu_torch.eval.evaluate import evaluate_prediction, json_sanitize
+    from runet_tpu_torch.eval.surface import volumetry
+    from runet_tpu_torch.infer.cascade import ModelBundle, predict_case, predict_volume
+    from runet_tpu_torch.io.nifti import load_volume
+    from runet_tpu_torch.kernels import fused_block, strided_conv
+    from runet_tpu_torch.models.unet3d import UNet3D
+    from runet_tpu_torch.params import ARTIFACT_DIR, load_model, load_npz, load_state
+    from runet_tpu_torch.train.checkpoint import CheckpointManager
+    from runet_tpu_torch.utils import native
+    from runet_tpu_torch.utils.export import checkpoint_params, load_params_npz, save_params_npz
+
+    root = WORK / "cli"
+    data, preds, watch, served = root / "data", root / "preds", root / "watch", root / "served"
+    run_dir, avg = root / "run", root / "avg.npz"
+    npz = {}
+    t0 = time.monotonic()
+    for name in ("coarse", "fine_kits"):
+        npz[name] = str(save_params_npz(root / f"{name}.npz",
+                                        load_npz(ARTIFACT_DIR / f"bench_params_{name}.npz"),
+                                        get_config(name).to_json()))
+    log(f"[cli] set-up (coarse and fine_kits npz with their configs) "
+        f"{time.monotonic() - t0:.1f} s")
+    stages = ["--coarse", npz["coarse"], "--fine", npz["fine_kits"]]
+    times, per = {}, {}
+
+    def run(tag, *argv):
+        before, io0 = kernel_counts(), dict(io)
+        t0 = time.monotonic()
+        rc = cli.main([str(a) for a in argv])
+        torch.cuda.synchronize()
+        times[tag] = time.monotonic() - t0
+        per[tag] = {k: v - before[k] for k, v in kernel_counts().items()}
+        log(f"[cli] {tag}: rc {rc}, {times[tag]:.3f} s (NIfTI read {io['read'] - io0['read']:.3f}"
+            f" s, write {io['write'] - io0['write']:.3f} s), launches "
+            f"{ {k: v for k, v in per[tag].items() if v} }")
+        return rc
+
+    reset_counts()
+    native.reset_call_counts()
+    torch.cuda.synchronize()
+    with launch_shapes() as shapes, nifti_seconds() as io:
+        t_phase = time.monotonic()
+        run("phantom", "phantom", "--out", data, "--cases", CLI_CASES,
+            "--shape", *CASE_SHAPE, "--spacing", *CASE_SPACING)
+        run("predict", "predict", "--data", data, *stages, "--out", preds, "--workers", 2)
+        run("evaluate", "evaluate", "--data", data, *stages, "--surface",
+            "--out", root / "eval.json")
+        watch.mkdir()
+        shutil.copy(data / "case_00000" / "imaging.nii.gz", watch / "case_00000.nii.gz")
+        serve_rc = run("serve", "serve", "--watch", watch, "--out", served, *stages,
+                       "--once", "--mesh-classes", 1)
+        run("warmup", "warmup", *stages, "--shape", *CASE_SHAPE)
+        run("mesh", "mesh", "--labels", preds / "case_00000.nii.gz", "--out", root / "meshes")
+        run("train", "train", "--config", "fine_kits", "--data", data, "--out", run_dir,
+            "--steps", CLI_TRAIN_STEPS[0])
+        run("train_resume", "train", "--config", "fine_kits", "--data", data,
+            "--out", run_dir, "--steps", CLI_TRAIN_STEPS[1], "--resume")
+        run("export", "export", "--run", run_dir, "--out", avg, "--average", 2)
+        run("predict_export", "predict", "--data", data / "case_00000" / "imaging.nii.gz",
+            "--fine", avg, "--out", root / "preds_export")
+        wall = time.monotonic() - t_phase
+    counts = kernel_counts()
+    log(f"[cli] phase wall {wall:.3f} s: "
+        + ", ".join(f"{tag} {sec:.3f}" for tag, sec in times.items())
+        + f"; NIfTI read {io['read']:.3f} s, write {io['write']:.3f} s (summed over threads)")
+    # Where a train call's time went: its metrics lines' wall_s count from
+    # the logger's start, after the dataset was loaded and preprocessed.
+    for line in (run_dir / "metrics.jsonl").read_text().splitlines():
+        log(f"[cli] train metrics: {line}")
+    native_calls("cli", "paste_crumbs_3d")
+
+    # In-process references on the same volumes and weights.
+    cm, ccfg = load_model("coarse", device=dev)
+    fm, fcfg = load_model("fine_kits", device=dev)
+    coarse, fine = ModelBundle.from_model(cm, ccfg), ModelBundle.from_model(fm, fcfg)
+    rows = {r["case_id"]: r for r in json.loads((root / "eval.json").read_text())["cases"]}
+    for i in range(CLI_CASES):
+        cid = f"case_{i:05d}"
+        vol = load_volume(data / cid / "imaging.nii.gz")
+        want = predict_case(coarse, fine, vol.data, vol.spacing, fcfg.cascade, device=dev)
+        written = [preds / f"{cid}.nii.gz"] + ([served / f"{cid}.nii.gz"] if i == 0 else [])
+        for path in written:
+            got = load_volume(path)
+            if got.data.shape != want.shape or not np.array_equal(got.data, want):
+                raise AssertionError(f"cli: {path.relative_to(root)} differs from in-process "
+                                     f"predict_case on {int((got.data != want).sum())} voxels")
+        gt = np.asarray(load_volume(data / cid / "segmentation.nii.gz").data)
+        row = evaluate_prediction(want, gt, 3, spacing=vol.spacing, surface=True)
+        row["case_id"] = cid
+        if rows[cid] != json.loads(json.dumps(json_sanitize(row))):
+            raise AssertionError(f"cli: evaluate's row {rows[cid]} != evaluate_prediction {row}")
+        log(f"[cli] {cid}: labels equal in-process predict_case; evaluate row equal "
+            f"(dice_fg_mean {row['dice_fg_mean']:.4f}, hd95_c1 {row['hd95_c1']:.3f} mm)")
+    report = json.loads((served / "case_00000.json").read_text())
+    labels = load_volume(served / "case_00000.nii.gz")
+    vols = volumetry(labels.data, labels.spacing, 3)
+    if serve_rc != 0 or {k: report[k] for k in vols} != vols or not (
+            served / "case_00000_c1.stl").exists():
+        raise AssertionError(f"cli: serve returned {serve_rc}, report {report}, "
+                             f"volumetry {vols}")
+    log(f"[cli] serve report {report}")
+
+    # The export averaged the run's two retained f32 checkpoints, and its
+    # npz serves: the fine-only predict equals in-process predict_volume.
+    ckpt = CheckpointManager(run_dir / "ckpt")
+    steps = ckpt.best_steps(2)
+    got, cfg_json = load_params_npz(avg)
+    a, b = (checkpoint_params(ckpt, s) for s in steps)
+    if len(steps) != 2 or any(not np.array_equal(got[k], ((a[k] + b[k]) / 2).astype(np.float32))
+                              for k in a):
+        raise AssertionError(f"cli: export --average 2 is not the mean of steps {steps}")
+    ecfg = Config.from_json(cfg_json)
+    em = load_state(UNet3D(ecfg.model, device=dev), got).eval()
+    vol = load_volume(data / "case_00000" / "imaging.nii.gz")
+    want = predict_volume(ModelBundle.from_model(em, ecfg), vol.data, vol.spacing, device=dev)
+    got_labels = load_volume(root / "preds_export" / "imaging.nii.gz").data
+    if not np.array_equal(got_labels, want):
+        raise AssertionError(f"cli: predict from the exported npz differs from in-process "
+                             f"predict_volume on {int((got_labels != want).sum())} voxels")
+    log(f"[cli] export --average 2 is the mean of checkpoints {steps}; predict from it equals "
+        f"in-process predict_volume ({want.shape}, classes {np.unique(want).tolist()})")
+
+    log(f"[cli] kernel launches in this phase: {counts}")
+    no_attic(counts, "cli")
+    for tag in ("predict", "evaluate", "serve", "warmup", "predict_export"):
+        for name in (fused_block.SOURCE, strided_conv.SOURCE):
+            if per[tag][name] <= 0:
+                raise AssertionError(f"cli {tag}: kernel {name} was not launched")
+    trained = {k: per["train"][k] + per["train_resume"][k] for k in counts}
+    n = CLI_TRAIN_STEPS[1]
+    if trained[fused_block.SOURCE] < 27 * n or trained[fused_block.DW_SOURCE] != 14 * n or (
+            trained[strided_conv.DW_SOURCE] != 4 * n):
+        raise AssertionError(f"cli train: launches {trained} for {n} steps")
     return counts, shapes
 
 
@@ -1604,7 +1807,7 @@ def kernel_lines(measured, path_counts):
     ``timed_ms_by_path`` splits ``ms`` by the path that first launched the
     shape); ``path_ms`` weighs each shape's time by its launches on that
     path; ``launches`` is over every path driven (the four main paths, the
-    HTTP entry point and the kernel bench, split in ``launches_by_path``; the bench's count the
+    HTTP entry point, the command line and the kernel bench, split in ``launches_by_path``; the bench's count the
     kernels its CUDA graphs replayed). ``max_abs_err`` also covers the
     attic phase's untimed cases. ``library_ms`` is null where no single
     library call computes the kernel's function (the instance-norm apply
@@ -1738,6 +1941,11 @@ def main() -> int:
     serve_counts, serve_shapes, fine, bundles = phase_serve(dev)
     http_counts, http_shapes = phase_serve_http(dev, *bundles)
     del bundles
+    try:
+        cli_counts, cli_shapes = phase_cli(dev)
+    finally:
+        shutil.rmtree(WORK / "cli", ignore_errors=True)
+    torch.cuda.empty_cache()
     phase_reference(fine, dev)
     del fine
     renal_counts, renal_shapes, renal_models = phase_serve_renal(dev)
@@ -1761,7 +1969,7 @@ def main() -> int:
         torch.cuda.empty_cache()
         bench_counts, bench_shapes = phase_kernel_bench(dev)
         measured = phase_kernels(dev, {"serve": serve_shapes, "serve_http": http_shapes,
-                                       "train": train_shapes,
+                                       "cli": cli_shapes, "train": train_shapes,
                                        "serve_renal": renal_shapes,
                                        "train_renal": rtrain_shapes,
                                        "kernel_bench": bench_shapes})
@@ -1770,7 +1978,7 @@ def main() -> int:
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
     kernels = kernel_lines(measured, {"serve": serve_counts, "serve_http": http_counts,
-                                      "train": train_counts,
+                                      "cli": cli_counts, "train": train_counts,
                                       "serve_renal": renal_counts,
                                       "train_renal": rtrain_counts,
                                       "kernel_bench": bench_counts})

@@ -15,9 +15,12 @@ all of them.
   explicit bucketed fine shapes (when the buckets are known without data).
 
 Both return per-item wall-clock seconds (device synchronized) and
-``total_s``. Items run one after another: they share one device and one
-allocator, and concurrent first touches would only blur the per-item cost.
-The JAX package's ``devices=`` lanes wait for multi-device serving.
+``total_s``. ``warmup_cases`` runs its cases on a pool of ``workers``
+threads, as the JAX package does and as ``predict_cases`` serves them, each
+case timed inside its own callable; the threads share one device, so a
+case's seconds include the device work of the cases beside it.
+``warmup_roi_buckets`` runs its items one after another. The JAX package's
+``devices=`` lanes wait for multi-device serving.
 """
 
 from __future__ import annotations
@@ -37,20 +40,31 @@ def _sync(dev: torch.device) -> None:
 
 
 def warmup_cases(coarse, fine, cases, cascade: CascadeConfig = CascadeConfig(),
-                 device=None) -> dict[str, float]:
+                 workers: int = 2, device=None) -> dict[str, float]:
     """Warm everything the given cases (an iterable of (image,
-    native_spacing)) touch on ``device`` (CUDA unless named); returns
-    ``{"case<i>_s": seconds, ..., "total_s": seconds}``."""
+    native_spacing)) touch on ``device`` (CUDA unless named), ``workers``
+    cases at a time; returns ``{"case<i>_s": seconds, ..., "total_s":
+    seconds}``."""
+    from concurrent.futures import ThreadPoolExecutor
+
     from runet_tpu_torch.infer.cascade import predict_case
 
     dev = resolve_device(device)
-    out: dict[str, float] = {}
-    t_all = time.monotonic()
-    for i, (img, sp) in enumerate(cases):
+
+    def timed(img, sp):
+        # Timed inside the callable: completion deltas read on the caller
+        # thread would give every case after the first almost nothing.
         t0 = time.monotonic()
         predict_case(coarse, fine, img, sp, cascade, device=dev)
         _sync(dev)
-        out[f"case{i}_s"] = round(time.monotonic() - t0, 2)
+        return time.monotonic() - t0
+
+    out: dict[str, float] = {}
+    t_all = time.monotonic()
+    with ThreadPoolExecutor(max_workers=max(1, workers)) as pool:
+        futs = [pool.submit(timed, img, sp) for img, sp in cases]
+        for i, f in enumerate(futs):
+            out[f"case{i}_s"] = round(f.result(), 2)
     out["total_s"] = round(time.monotonic() - t_all, 2)
     return out
 

@@ -57,8 +57,14 @@ def torch_to_flax(model: UNet3D) -> dict[str, np.ndarray]:
     ``/``-joined flax keys, f32 numpy, with the 1x1x1 projection and head
     kernels back in flax's (1, 1, 1, C, out) shape — the layout of the
     committed npz files and of JAX's ``init_params`` output."""
+    return state_to_flax(model.state_dict())
+
+
+def state_to_flax(state_dict: dict[str, torch.Tensor]) -> dict[str, np.ndarray]:
+    """``torch_to_flax`` of a ``UNet3D`` state_dict, e.g. the ``params`` of a
+    training checkpoint (``train/checkpoint.py``)."""
     out = {}
-    for name, t in model.state_dict().items():
+    for name, t in state_dict.items():
         a = t.detach().float().cpu().numpy()
         if name.endswith("kernel") and a.ndim == 2:
             a = a.reshape(1, 1, 1, *a.shape)
