@@ -94,6 +94,40 @@ Phases (any failure exits non-zero; nothing is caught and printed over):
    OVERFIT_FRACTION of the first. Prints the warm step median (host clock
    around synchronized steps), images/s, peak device memory, and the
    kernel launches of one step;
+7b. parallel (``runet_tpu_torch/parallel``): data parallelism at world
+   size 1 over NCCL, ``train(mesh=make_mesh(1))`` with fine_kits (128³,
+   batch 2) for 2 steps in a rank process, its aux and parameters
+   ``torch.equal`` to the one-device ``train`` on the same data and seed
+   where two one-device runs are themselves equal, else within their spread
+   (printed); world size 2 over gloo, both ranks on the one card (NCCL
+   refuses two ranks on one GPU), one augmented fine_kits step of batch 1 +
+   1 (SGD at a constant rate): the reduced gradients each rank's optimizer
+   step is given, bit-equal to the f32 mean of the two one-process batch-1
+   steps' (the DP step's arithmetic in one process; ``grad_norm`` within
+   DP_NORM_EXACT_REL of that mean's), equal on both ranks, and against the
+   one-process batch-2 step the whole gradient's cosine >= DP_COSINE and
+   ``grad_norm`` within DP_NORM_REL (per-tensor cosines printed, and where
+   one process's batch-2 step first leaves its batch-1 steps: forward
+   logits, then gradients in backward order, with the bf16 rounding of
+   the conv kernels' gradients and the two samples' cancellation); both ranks' parameters
+   equal, rows 1, 3 and 4 launched in each; the DP step's ms at both world
+   sizes (DP_TIMED_STEPS warm synchronized steps); the same two ranks then
+   run fine_kits spatially partitioned over a 256x128x128 phantom (halo
+   32), labels equal on every voxel to a one-process reference of the
+   sharded forward (the same X blocks and halos, the threads' norm moments
+   averaged by hand) and agreeing with the dense forward of the same
+   weights on >= SPATIAL_AGREE of voxels (two controls, norms not averaged
+   and zero halos, each printed against the dense forward and required to
+   leave the reference on some voxel), the halo exchange and label gather staged
+   through pinned host memory (counted); then ``warmup_cases`` and
+   ``predict_cases`` on two serving lanes of the card (``devices=["cuda:0",
+   "cuda:0"]``) over three KiTS-scale phantoms, labels equal to serial
+   ``predict_case``, rows 1-2 and the native tier's calls made, and one
+   lane on the card from bundles loaded on the CPU (``bundle_on_device``
+   copies their modules there; labels equal to serial). Every rank returns its kernel counts
+   (set to 0 before its driven work) and launch shapes; with the lanes'
+   they are the ``parallel`` path of the ``kernels`` line, and no attic
+   kernel runs;
 8. kernel bench: ``python -m runet_tpu_torch.utils.kernel_bench`` run
    in-process into ``chip_smoke_work/``, the path of the four attic
    kernels (``kernels/attic``; no model config routes through them, and
@@ -103,7 +137,8 @@ Phases (any failure exits non-zero; nothing is caught and printed over):
    every one of the ten kernels must have launched, and every row must
    carry a finite positive ms for each kernel it names;
 9. kernel vs plain: each kernel on random inputs at every distinct shape
-   the serve, cli, train and kernel-bench phases launched it with, against its
+   the serve, cli, train, parallel and kernel-bench phases launched it with,
+   against its
    plain version on the same inputs, with timings (``utils/latency.py``'s
    ``chained_ms``) of kernel, plain version and the library yardstick
    (bf16 ``F.conv3d`` + sums for the forward kernels, without sums for the
@@ -1091,6 +1126,565 @@ def phase_overfit(dev, cases):
             "peak_gib": peak / 2**30}
 
 
+# ---- parallel: data parallelism, spatial partitioning, serving lanes --------
+
+PARALLEL_STEPS = 2
+SPATIAL_SHAPE = (256, 128, 128)
+SPATIAL_HALO = 32
+SPATIAL_AGREE = 0.99
+DP_COSINE = 0.999
+DP_NORM_REL = 1e-4
+DP_NORM_EXACT_REL = 1e-6
+DP_TIMED_STEPS = 3
+
+
+def _dp_sgd_config():
+    """fine_kits with SGD at a constant rate, no warm-up and no weight decay:
+    one step moves each weight by a fixed multiple of its clipped gradient,
+    so updated-minus-initial compares the gradients (Adam's first step is
+    about lr·sign(g) and would turn a tiny gradient's rounding into a whole
+    step)."""
+    from runet_tpu_torch.config import get_config
+
+    cfg = get_config("fine_kits")
+    return dataclasses.replace(cfg, train=dataclasses.replace(
+        cfg.train, optimizer="sgd", lr=1e-2, lr_schedule="const", warmup_steps=0,
+        weight_decay=0.0))
+
+
+def _spatial_config():
+    """fine_kits with its norms bound to the ``space`` mesh axis."""
+    from runet_tpu_torch.config import get_config
+    from runet_tpu_torch.parallel.comm import SPACE_AXIS
+
+    cfg = get_config("fine_kits")
+    return dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, spatial_axis=SPACE_AXIS))
+
+
+def _keep_grads(optimizer, kept: dict, names) -> None:
+    """Wrap ``optimizer.step`` (this instance only) so that its next call
+    first keeps f32 host copies of the gradients it is given: after the
+    step's ``reduce_grads`` (the data-parallel mean), before the clip.
+    The wrapper removes itself after that call."""
+    inner = optimizer.step
+
+    def step(params, grads, norm=None):
+        kept.update((n, g.detach().float().to("cpu", copy=True)) for n, g in zip(names, grads))
+        del optimizer.step
+        return inner(params, grads, norm)
+
+    optimizer.step = step
+
+
+def _rank_device_check():
+    from runet_tpu_torch.parallel import comm
+
+    dev = comm.device()
+    if dev.type != "cuda" or not torch.cuda.is_available():
+        raise AssertionError(f"a parallel rank found no CUDA device (device {dev})")
+    return dev
+
+
+def _timed_steps(step, state, images, labels, *rest) -> float:
+    """ms per step over DP_TIMED_STEPS synchronized steps (warm)."""
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    for _ in range(DP_TIMED_STEPS):
+        step(state, images, labels, *rest)
+    torch.cuda.synchronize()
+    return (time.monotonic() - t0) * 1e3 / DP_TIMED_STEPS
+
+
+def _rank_train_world1(rank, world, data_root, out_dir, batch):
+    """World 1 over NCCL: ``train(mesh=make_mesh(1))`` at full fine_kits
+    width, then DP_TIMED_STEPS timed data-parallel steps on ``batch``."""
+    import torch.distributed as dist
+
+    from runet_tpu_torch.config import get_config
+    from runet_tpu_torch.parallel import comm
+    from runet_tpu_torch.parallel.dp import make_dp_train_step
+    from runet_tpu_torch.train.loop import train
+
+    dev = _rank_device_check()
+    cfg = get_config("fine_kits")
+    mesh = comm.make_mesh(world)
+    reset_counts()
+    with launch_shapes() as shapes:
+        t0 = time.monotonic()
+        state, aux = train(cfg, data_root=data_root, out_dir=out_dir, max_steps=PARALLEL_STEPS,
+                           mesh=mesh, log_every=1)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+    counts = kernel_counts()
+    params = {k: v.detach().to("cpu", copy=True) for k, v in state.model.state_dict().items()}
+    step = make_dp_train_step(state.model, mesh, augment=True, elastic=cfg.train.elastic)
+    images, labels = comm.shard_batch(mesh, batch)
+    gens = (torch.Generator(), torch.Generator(device=dev))
+    ms = _timed_steps(step, state, images, labels, gens, 5)
+    return {"backend": dist.get_backend(), "device": str(dev), "wall": wall, "counts": counts,
+            "shapes": dict(shapes), "aux": {k: float(v) for k, v in aux.items()},
+            "params": params, "step_ms": ms}
+
+
+def _rank_dp_spatial(rank, world, batch, seed, volume):
+    """Two ranks on one card over gloo: one augmented data-parallel step of
+    fine_kits (SGD) on this rank's half of ``batch``, DP_TIMED_STEPS timed
+    steps, then the spatially partitioned fine_kits forward of ``volume``
+    (halo SPATIAL_HALO); counts and launch shapes of both."""
+    import hashlib
+
+    import torch.distributed as dist
+
+    from runet_tpu_torch.models.unet3d import create_train_model, init_params
+    from runet_tpu_torch.params import load_model
+    from runet_tpu_torch.parallel import comm
+    from runet_tpu_torch.parallel.dp import make_dp_train_step
+    from runet_tpu_torch.parallel.spatial import spatial_shard_predict
+    from runet_tpu_torch.train.state import create_train_state
+
+    dev = _rank_device_check()
+    mesh = comm.make_mesh(world)
+    cfg = _dp_sgd_config()
+    model = init_params(create_train_model(cfg.model, dev),
+                        torch.Generator().manual_seed(cfg.train.seed))
+    state = create_train_state(model, cfg.train)
+    step = make_dp_train_step(model, mesh, augment=True, elastic=cfg.train.elastic)
+    images, labels = comm.shard_batch(mesh, batch)
+    gens = (torch.Generator(), torch.Generator(device=dev))
+    grads: dict = {}
+    _keep_grads(state.optimizer, grads, [n for n, _ in model.named_parameters()])
+    reset_counts()
+    with launch_shapes() as dp_shapes:
+        aux = step(state, images, labels, gens, seed)
+        torch.cuda.synchronize()
+    dp_counts = kernel_counts()
+    params = {n: p.detach().to("cpu", copy=True) for n, p in model.named_parameters()}
+    digest = hashlib.sha256(b"".join(p.numpy().tobytes() for p in params.values())).hexdigest()
+    ms = _timed_steps(step, state, images, labels, gens, seed + 1)
+    del model, state, step, images, labels
+    torch.cuda.empty_cache()
+
+    sp_cfg = _spatial_config()
+    space = comm.make_mesh(world, (sp_cfg.model.spatial_axis,))
+    fm, _ = load_model(sp_cfg, device=dev)
+    comm.reset_staged_calls()
+    reset_counts()
+    with launch_shapes() as sp_shapes, torch.inference_mode():
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        pred = spatial_shard_predict(lambda _p, x: fm(x), None, volume, space, SPATIAL_HALO,
+                                     divisor=2 ** (sp_cfg.model.num_levels - 1))
+        torch.cuda.synchronize()
+        sp_wall = time.monotonic() - t0
+    return {"backend": dist.get_backend(), "device": str(dev),
+            "dp": {"aux": {k: float(v) for k, v in aux.items()}, "counts": dp_counts,
+                   "shapes": dict(dp_shapes), "digest": digest, "step_ms": ms,
+                   "grads": grads},
+            "spatial": {"labels": pred.cpu().numpy(), "counts": kernel_counts(),
+                        "shapes": dict(sp_shapes), "staged": comm.staged_calls(),
+                        "wall": sp_wall}}
+
+
+def _cosines(got: dict, want: dict) -> dict:
+    """Per-tensor cosine of ``got`` and ``want``, in f64."""
+    out = {}
+    for k in want:
+        a, b = got[k].double().flatten(), want[k].double().flatten()
+        out[k] = float(torch.dot(a, b) / (a.norm() * b.norm()))
+    return out
+
+
+def _spatial_reference(model, volume: torch.Tensor, n: int, halo: int,
+                       neighbours: bool = True) -> np.ndarray:
+    """One-process reference of ``spatial_shard_predict``'s arithmetic: the
+    n X blocks of ``volume`` ((X, Y, Z, C) on the card, X a multiple of n
+    times the model's divisor), each extended by its neighbours' ``halo``
+    slabs (zeros at the two global edges; zeros at every face with
+    ``neighbours=False``), run as n batch-1 forwards on n threads. Where
+    the model's norms are bound to an axis, the threads meet at each norm
+    and average its moments by hand (the f32 sum over the blocks, then / n,
+    as the ranks' all-reduce); a model without ``spatial_axis`` keeps each
+    block's own. Returns the (X, Y, Z) uint8 labels."""
+    from concurrent.futures import ThreadPoolExecutor
+    from unittest import mock
+
+    from runet_tpu_torch.parallel import comm
+
+    X = volume.shape[0]
+    block = X // n
+    zeros = volume.new_zeros((halo, *volume.shape[1:]))
+
+    def face(lo, hi):
+        return volume[lo:hi] if neighbours and lo >= 0 and hi <= X else zeros
+
+    blocks = [torch.cat([face(i * block - halo, i * block), volume[i * block:(i + 1) * block],
+                         face((i + 1) * block, (i + 1) * block + halo)]) for i in range(n)]
+    meet = threading.Barrier(n, timeout=300)
+    slots: list = [None] * n
+    me = threading.local()
+
+    def axis_mean(tensors, axis_name):
+        # One CUDA stream serves both threads; the barriers order the reads.
+        slots[me.i] = torch.stack([t.float() for t in tensors])
+        meet.wait()
+        total = slots[0].clone()
+        for other in slots[1:]:
+            total += other
+        meet.wait()
+        return (total / n).unbind(0)
+
+    def run(i):
+        me.i = i
+        with torch.inference_mode():
+            logits = model(blocks[i][None])[0][halo:-halo]
+            return torch.argmax(logits.float(), dim=-1).to(torch.uint8)
+
+    with mock.patch.object(comm, "axis_mean", axis_mean), ThreadPoolExecutor(n) as pool:
+        return torch.cat(list(pool.map(run, range(n)))).cpu().numpy()
+
+
+def _dw64(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """The stride-1 3x3x3 weight gradient of (B, D, C, H, W) ``x`` and
+    ``g`` summed over the batch in f64, as (Cout, Cin, 3, 3, 3)."""
+    xs, gs = (t.permute(0, 2, 1, 3, 4).double() for t in (x, g))
+    return torch.nn.grad.conv3d_weight(xs, (gs.shape[1], xs.shape[1], 3, 3, 3), gs, padding=1)
+
+
+def _enc0_dw_check(b2: dict, b1, dw_b2: torch.Tensor, dw_b1: torch.Tensor) -> dict:
+    """Where the first conv's weight gradient parts between one process's
+    batch-2 step and its two batch-1 steps: ``b2`` and ``b1`` hold the (x,
+    g) its weight-gradient kernel was given in each; ``dw_b2`` is the
+    batch-2 gradient and ``dw_b1`` the mean of the two batch-1 ones
+    (3, 3, 3, Cin, Cout). The f64 sums say whether g already differs, and
+    how much the sum cancels."""
+    def cos(a, b):
+        a, b = a.double().flatten(), b.double().flatten()
+        return float(torch.dot(a, b) / (a.norm() * b.norm()))
+
+    x1, g1 = (torch.cat([e[k] for e in b1]) for k in ("x", "g"))
+    r2 = _dw64(b2["x"], b2["g"])
+    r1 = sum(_dw64(e["x"], e["g"]) for e in b1) / 2
+    terms = _dw64(x1.abs(), g1.abs()) / 2
+    as_f64 = (4, 3, 0, 1, 2)  # (kd, kh, kw, Cin, Cout) -> (Cout, Cin, kd, kh, kw)
+    return {"x_equal": torch.equal(b2["x"], x1), "g_off": int((b2["g"] * 2 != g1).sum()),
+            "g_n": g1.numel(), "cos_f64": cos(r2, r1), "cancel": float(r1.norm() / terms.norm()),
+            "cos_b2": cos(dw_b2.to(r2.device).permute(as_f64), r2),
+            "cos_b1": cos(dw_b1.to(r1.device).permute(as_f64), r1)}
+
+
+def phase_parallel(dev, cases):
+    """Data parallelism at world sizes 1 (NCCL) and 2 (gloo, one card),
+    spatial-partition inference over 2 ranks and the per-device serving
+    lanes, each against its one-process reference; returns the launch
+    counts and launch shapes of the parallel path (every rank's and the
+    lanes')."""
+    from concurrent.futures import ThreadPoolExecutor
+    from unittest import mock
+
+    from runet_tpu_torch.config import get_config
+    from runet_tpu_torch.data.phantom import make_phantom
+    from runet_tpu_torch.data.sampler import sample_batch
+    from runet_tpu_torch.infer.cascade import (
+        ModelBundle,
+        device_lanes,
+        predict_case,
+        predict_cases,
+    )
+    from runet_tpu_torch.infer.warmup import warmup_cases
+    from runet_tpu_torch.kernels import fused_block, strided_conv
+    from runet_tpu_torch.models.unet3d import create_train_model, init_params
+    from runet_tpu_torch.params import load_model
+    from runet_tpu_torch.parallel.launch import spawn
+    from runet_tpu_torch.preprocess.normalize import normalize
+    from runet_tpu_torch.train.loop import train
+    from runet_tpu_torch.train.state import create_train_state, global_norm, make_train_step
+    from runet_tpu_torch.utils import native
+
+    t_phase = time.monotonic()
+    torch.cuda.empty_cache()
+    total, shapes = {}, {}
+
+    def gather(counts, launch):
+        add_counts(total, counts)
+        for k, v in launch.items():
+            shapes[k] = shapes.get(k, 0) + v
+
+    # The lanes' KiTS-scale phantoms are made on the host while the ranks run.
+    pool = ThreadPoolExecutor(max_workers=1)
+    phantoms = pool.submit(lambda: [make_phantom(CASE_SHAPE, CASE_SPACING, num_classes=3,
+                                                 seed=s)[0] for s in range(3)])
+
+    cfg = get_config("fine_kits")
+    batch = sample_batch(np.random.default_rng(3), cases, cfg.train.batch_size,
+                         cfg.train.patch_size, fg_prob=1.0)
+
+    # -- world 1, NCCL: train(mesh=make_mesh(1)) against two one-device runs.
+    refs = []
+    for i in range(2):
+        state, aux = train(cfg, data_root=WORK / "data", out_dir=WORK / f"par_single{i}",
+                           max_steps=PARALLEL_STEPS, log_every=1, device=dev)
+        sd = state.model.state_dict()
+        refs.append(({k: v.detach().to("cpu", copy=True) for k, v in sd.items()},
+                     {k: float(v) for k, v in aux.items()}))
+    del state
+    t0 = time.monotonic()
+    (w1,) = spawn(_rank_train_world1, 1, backend="nccl", device="cuda:0",
+                  args=(str(WORK / "data"), str(WORK / "par_dp1"), batch))
+    w1_wall = time.monotonic() - t0
+    if w1["backend"] != "nccl":
+        raise AssertionError(f"world 1 ran on {w1['backend']}, not NCCL")
+    gather(w1["counts"], w1["shapes"])
+    (p0, a0), (p1, a1) = refs
+    single_equal = all(torch.equal(p0[k], p1[k]) for k in p0) and a0 == a1
+    spread = max((p0[k].float() - p1[k].float()).abs().max().item() for k in p0)
+    diff = max((w1["params"][k].float() - p0[k].float()).abs().max().item() for k in p0)
+    aux_diff = max(abs(w1["aux"][k] - a0[k]) for k in a0)
+    aux_spread = max(abs(a1[k] - a0[k]) for k in a0)
+    log(f"[parallel] DP world 1 (nccl, {w1['device']}): train(mesh=make_mesh(1)) fine_kits 128³ "
+        f"batch {cfg.train.batch_size}, {PARALLEL_STEPS} steps in {w1['wall']:.1f} s "
+        f"({w1_wall:.1f} s with the process start); aux {w1['aux']}")
+    log(f"[parallel] DP world 1 vs one-device train: max |Δparam| {diff:.3g}, max |Δaux| "
+        f"{aux_diff:.3g}; two one-device runs equal: {single_equal} (spread: param "
+        f"{spread:.3g}, aux {aux_spread:.3g})")
+    if single_equal:
+        if not (all(torch.equal(w1["params"][k], p0[k]) for k in p0) and w1["aux"] == a0):
+            raise AssertionError("DP world 1 differs from the one-device run, which repeats "
+                                 "bit for bit")
+    elif diff > spread or aux_diff > aux_spread:
+        raise AssertionError(f"DP world 1 differs from the one-device run by {diff} (aux "
+                             f"{aux_diff}), beyond the spread of two one-device runs")
+    log(f"[parallel] DP step at world 1 (nccl, batch {cfg.train.batch_size} per rank): "
+        f"{w1['step_ms']:.1f} ms (mean of {DP_TIMED_STEPS} warm synchronized steps)")
+
+    # -- world 2, gloo on the one card: a DP step and the spatial forward.
+    # One-process references from the same initial weights, each keeping
+    # the gradients its optimizer step is given: the batch-2 step, and the
+    # two batch-1 steps (each sample's draws at its global index), whose
+    # f32 mean is the DP step's arithmetic done in one process.
+    scfg = _dp_sgd_config()
+    names = [n for n, _ in create_train_model(scfg.model, "meta").named_parameters()]
+
+    dw_kernel = fused_block.conv3x3_dw
+
+    def one_process_step(lo, hi):
+        model = init_params(create_train_model(scfg.model, dev),
+                            torch.Generator().manual_seed(scfg.train.seed))
+        state = create_train_state(model, scfg.train)
+        grads: dict = {}
+        _keep_grads(state.optimizer, grads, names)
+        images, labels = (torch.from_numpy(a[lo:hi]).to(dev) for a in batch)
+        enc0: dict = {}
+
+        def dw_keeping(x, g):
+            if x.shape[2] == 1:  # enc0's first conv, the only one with Cin 1
+                enc0.update(x=x.detach().clone(), g=g.detach().clone())
+            return dw_kernel(x, g)
+
+        with mock.patch.object(fused_block, "conv3x3_dw", dw_keeping):
+            aux = make_train_step(model, augment=True, elastic=scfg.train.elastic)(
+                state, images, labels, (torch.Generator(), torch.Generator(device=dev)), 17, lo)
+        return grads, float(aux["grad_norm"]), enc0
+
+    ref, ref_norm, enc0_b2 = one_process_step(0, 2)
+    halves, _, enc0_b1 = zip(*(one_process_step(i, i + 1) for i in range(2)))
+    # The all-reduce's sum of the two ranks' f32 gradients, then / 2.
+    mean_halves = {k: (halves[0][k] + halves[1][k]) / 2 for k in names}
+    halves_norm = float(global_norm([mean_halves[k].to(dev) for k in names]))
+    # Where one process's batch-2 step leaves its batch-1 steps: the forward
+    # logits of the two samples at batch 2 against batch 1 each, and the
+    # gradients in backward order (head first).
+    model = init_params(create_train_model(scfg.model, dev),
+                        torch.Generator().manual_seed(scfg.train.seed))
+    with torch.no_grad():
+        x = torch.from_numpy(batch[0]).to(dev).float()
+        l2 = model(x)
+        l1 = torch.cat([model(x[i:i + 1]) for i in range(2)])
+    fwd_diff, fwd_n = int((l2 != l1).sum()), l2.numel()
+    del model, x, l1, l2
+    diverged = [k for k in reversed(names) if not torch.equal(ref[k], mean_halves[k])]
+    # The conv kernels' gradients leave the weight-gradient kernels rounded
+    # to the compute dtype: batch 2 rounds the two samples' sum, batch 1 + 1
+    # each sample's. How far the two samples cancel says how much that
+    # rounding weighs in their mean.
+    rounded = [k for k in names if all(torch.equal(g[k], g[k].bfloat16().float())
+                                       for g in (*halves, ref))]
+    cancel = {k: float((halves[0][k] + halves[1][k]).norm()
+                       / (halves[0][k].norm() + halves[1][k].norm())) for k in names}
+    enc0 = _enc0_dw_check(enc0_b2, enc0_b1, ref[names[0]], mean_halves[names[0]])
+    del enc0_b2, enc0_b1
+    torch.cuda.empty_cache()
+
+    pp = _spatial_config().preprocess
+    img, _ = make_phantom(SPATIAL_SHAPE, CASE_SPACING, num_classes=3, seed=21)
+    volume = normalize(torch.from_numpy(img.astype(np.float32)), pp.hu_window,
+                       pp.hu_stats)[..., None].numpy()
+    t0 = time.monotonic()
+    ranks = spawn(_rank_dp_spatial, 2, backend="gloo", device=["cuda:0", "cuda:0"],
+                  args=(batch, 17, volume))
+    w2_wall = time.monotonic() - t0
+    for r, res in enumerate(ranks):
+        if res["backend"] != "gloo":
+            raise AssertionError(f"rank {r} ran on {res['backend']}")
+        gather(res["dp"]["counts"], res["dp"]["shapes"])
+        gather(res["spatial"]["counts"], res["spatial"]["shapes"])
+        log(f"[parallel] rank {r} ({res['device']}) launches: DP step {res['dp']['counts']}; "
+            f"spatial {res['spatial']['counts']}")
+        for name in (fused_block.SOURCE, fused_block.DW_SOURCE, strided_conv.DW_SOURCE):
+            if res["dp"]["counts"][name] <= 0:
+                raise AssertionError(f"rank {r}: {name} was not launched in the DP step")
+        for name in (fused_block.SOURCE, strided_conv.SOURCE):
+            if res["spatial"]["counts"][name] <= 0:
+                raise AssertionError(f"rank {r}: {name} was not launched in the spatial forward")
+    if ranks[0]["dp"]["digest"] != ranks[1]["dp"]["digest"]:
+        raise AssertionError("the two DP ranks hold different parameters after the step")
+    dp = ranks[0]["dp"]["grads"]
+    if not all(torch.equal(dp[k], ranks[1]["dp"]["grads"][k]) for k in names):
+        raise AssertionError("the two DP ranks updated with different reduced gradients")
+    off = {k: float((dp[k] - mean_halves[k]).abs().max() / mean_halves[k].abs().max())
+           for k in names if not torch.equal(dp[k], mean_halves[k])}
+    cos = _cosines(dp, ref)
+    whole = _cosines({"all": torch.cat([dp[k].flatten() for k in names])},
+                     {"all": torch.cat([ref[k].flatten() for k in names])})["all"]
+    dp_norm = ranks[0]["dp"]["aux"]["grad_norm"]
+    rel = abs(dp_norm - ref_norm) / ref_norm
+    rel_halves = abs(dp_norm - halves_norm) / halves_norm
+    low = sorted(cos, key=cos.get)[:4]
+    log(f"[parallel] DP world 2 (gloo, 2 ranks on cuda:0, batch 1 + 1, augmented, SGD): "
+        f"reduced gradients bit-equal to the f32 mean of the one-process batch-1 steps' in "
+        f"{len(names) - len(off)} of {len(names)} tensors"
+        + (f" (largest |Δ| / max|g| {max(off.values()):.3g} at {max(off, key=off.get)})"
+           if off else "")
+        + f", grad_norm {dp_norm:.7g} vs {halves_norm:.7g} (rel {rel_halves:.2e})")
+    log(f"[parallel] DP world 2 vs the one-process batch-2 step: gradient cosine, whole "
+        f"{whole:.8f}, per tensor lowest " + ", ".join(f"{k} {cos[k]:.6f}" for k in low)
+        + f" ({sum(c < DP_COSINE for c in cos.values())} of {len(names)} below {DP_COSINE}); "
+        f"grad_norm {dp_norm:.7g} vs {ref_norm:.7g} (rel {rel:.2e}); "
+        f"{w2_wall:.1f} s for the two ranks' DP and spatial work with their process starts")
+    log(f"[parallel] one process, batch 2 against batch 1 + 1 (same weights, draws and "
+        f"samples): forward logits differ in {fwd_diff} of {fwd_n} elements; gradients "
+        f"bit-equal to the batch-1 steps' mean in {len(names) - len(diverged)} of "
+        f"{len(names)} tensors, the first to differ in backward order "
+        f"{diverged[0] if diverged else None}; bf16-exact in all three steps: "
+        f"{len(rounded)} tensors ({', '.join(k for k in rounded if k in low) or 'none'} of "
+        f"the lowest four); |g0 + g1| / (|g0| + |g1|) of the batch-1 gradients at the "
+        f"lowest four " + ", ".join(f"{cancel[k]:.4f}" for k in low)
+        + f" (median over all {statistics.median(cancel.values()):.4f})")
+    log(f"[parallel] one process, {names[0]}'s weight gradient at batch 2 against batch "
+        f"1 + 1: its input x equal {enc0['x_equal']}; its output gradient g (doubled at "
+        f"batch 2, whose loss is the mean over 2 samples) differs in {enc0['g_off']} of "
+        f"{enc0['g_n']} bf16 elements; the f64 sums over each step's own x and g reach a "
+        f"cosine of {enc0['cos_f64']:.6f}; |sum| / sum of |terms| {enc0['cancel']:.3g}; "
+        f"the kernel's dw against its f64 sum, cosine {enc0['cos_b2']:.6f} (batch 2) and "
+        f"{enc0['cos_b1']:.6f} (batch 1 + 1)")
+    # The DP step is held to its own arithmetic done in one process (the
+    # mean of the batch-1 steps, bit for bit) and to the batch-2 step as a
+    # whole. Per tensor, one process's batch-2 step already differs from
+    # its batch-1 steps' mean (printed above), so it is not a gate.
+    if off or rel_halves > DP_NORM_EXACT_REL or whole < DP_COSINE or rel > DP_NORM_REL:
+        raise AssertionError(f"DP world 2 disagrees: {len(off)} tensors off the batch-1 "
+                             f"steps' mean {off}, grad_norm rel {rel_halves} to it; whole "
+                             f"cosine to the batch-2 step {whole}, grad_norm rel {rel}")
+    log(f"[parallel] DP step at world 2 (gloo, one card, batch 1 per rank): "
+        f"{ranks[0]['dp']['step_ms']:.1f} / {ranks[1]['dp']['step_ms']:.1f} ms (ranks 0 / 1, "
+        f"mean of {DP_TIMED_STEPS} warm synchronized steps)")
+
+    fm, fcfg = load_model("fine_kits", device=dev)
+    sm, _ = load_model(_spatial_config(), device=dev)
+    vol = torch.from_numpy(volume).to(dev)
+    with torch.inference_mode():
+        dense = torch.argmax(fm(vol[None]).float(), dim=-1)[0]
+    dense = dense.to(torch.uint8).cpu().numpy()
+    # The ranks against a one-process reference of their arithmetic, and
+    # two controls with a fault the path exists to avoid, each against the
+    # dense forward: norms not averaged over the blocks (spatial_axis=None),
+    # and zero halos at the interior faces.
+    reference = _spatial_reference(sm, vol, 2, SPATIAL_HALO)
+    controls = {"spatial_axis=None": _spatial_reference(fm, vol, 2, SPATIAL_HALO),
+                "zero halos": _spatial_reference(sm, vol, 2, SPATIAL_HALO, neighbours=False)}
+    ref_agree = float((reference == dense).mean())
+    seen = {k: int((v != reference).sum()) for k, v in controls.items()}
+    log(f"[parallel] spatial one-process reference (2 X blocks, neighbour halos, moments "
+        f"averaged by hand) agrees with the dense forward on {ref_agree:.5f} of voxels; "
+        f"controls against the dense forward: " + ", ".join(
+            f"{k} {float((v == dense).mean()):.5f}" for k, v in controls.items())
+        + "; voxels where each control leaves the reference: " + ", ".join(
+            f"{k} {n}" for k, n in seen.items()))
+    if not all(seen.values()):
+        raise AssertionError(f"a spatial control equals the reference, which then cannot "
+                             f"tell its fault: {seen}")
+    del sm, vol
+    for r, res in enumerate(ranks):
+        labels = res["spatial"]["labels"]
+        if labels.shape != SPATIAL_SHAPE or labels.dtype != np.uint8:
+            raise AssertionError(f"rank {r}: spatial labels {labels.shape} {labels.dtype}")
+        agree = float((labels == dense).mean())
+        off_ref = int((labels != reference).sum())
+        log(f"[parallel] spatial rank {r}: fine_kits on {SPATIAL_SHAPE} over 2 ranks (halo "
+            f"{SPATIAL_HALO}) in {res['spatial']['wall']:.3f} s, labels agree with the dense "
+            f"forward on {agree:.5f} of voxels and differ from the one-process reference on "
+            f"{off_ref}; staged-halo calls (gloo, pinned host) {res['spatial']['staged']}")
+        if off_ref or agree < SPATIAL_AGREE or res["spatial"]["staged"] <= 0:
+            raise AssertionError(f"rank {r}: {off_ref} voxels off the one-process reference, "
+                                 f"spatial agreement {agree} < {SPATIAL_AGREE} or no staged "
+                                 f"call")
+    del fm
+
+    # -- serving lanes: predict_cases(devices=[cuda:0, cuda:0]).
+    cm, ccfg = load_model("coarse", device=dev)
+    fm, fcfg = load_model("fine_kits", device=dev)
+    coarse, fine = ModelBundle.from_model(cm, ccfg), ModelBundle.from_model(fm, fcfg)
+    imgs = phantoms.result()
+    pool.shutdown()
+    serial = [predict_case(coarse, fine, img, CASE_SPACING, fcfg.cascade, device=dev)
+              for img in imgs]
+    lanes = ["cuda:0", "cuda:0"]
+    reset_counts()
+    native.reset_call_counts()
+    with launch_shapes() as lane_shapes:
+        warm = warmup_cases(coarse, fine, [(imgs[0], CASE_SPACING)], fcfg.cascade, devices=lanes)
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        preds = list(predict_cases(coarse, fine, [(img, CASE_SPACING) for img in imgs],
+                                   fcfg.cascade, devices=lanes))
+        lane_wall = time.monotonic() - t0
+    lane_counts = kernel_counts()
+    native_calls("parallel", "paste_crumbs_3d")
+    gather(lane_counts, lane_shapes)
+    for i, (a, b) in enumerate(zip(serial, preds)):
+        if not np.array_equal(a, b):
+            raise AssertionError(f"lanes: case {i} differs from serial predict_case on "
+                                 f"{int((a != b).sum())} voxels")
+    for name in (fused_block.SOURCE, strided_conv.SOURCE):
+        if lane_counts[name] <= 0:
+            raise AssertionError(f"lanes: {name} was not launched")
+    log(f"[parallel] lanes {lanes}: warmup_cases {warm}; predict_cases 3 cases "
+        f"{CASE_SHAPE} in {lane_wall:.3f} s = {lane_wall / 3:.3f} s/case, equal to serial "
+        f"predict_case voxel for voxel; launches {lane_counts}")
+
+    # A lane on another device than its bundles': the bundles loaded on the
+    # CPU, one lane on the card, so bundle_on_device copies their modules.
+    cpu = [load_model(name, device="cpu")[0] for name in ("coarse", "fine_kits")]
+    cpu_coarse, cpu_fine = ModelBundle.from_model(cpu[0], ccfg), ModelBundle.from_model(cpu[1], fcfg)
+    ((lane_dev, lane_coarse, lane_fine),) = device_lanes(cpu_coarse, cpu_fine, ["cuda:0"])
+    held = {t.device for b in (lane_coarse, lane_fine)
+            for t in (*b.params.parameters(), *b.params.buffers())}
+    left = {t.device for m in cpu for t in (*m.parameters(), *m.buffers())}
+    copied = list(predict_cases(cpu_coarse, cpu_fine, [(imgs[0], CASE_SPACING)],
+                                fcfg.cascade, devices=["cuda:0"]))[0]
+    log(f"[parallel] lane cuda:0 from bundles on the CPU: the lane's modules on {held}, "
+        f"the bundles' left on {left}; labels equal to serial predict_case: "
+        f"{np.array_equal(copied, serial[0])}")
+    if (held != {torch.device("cuda", 0)} or left != {torch.device("cpu")}
+            or lane_dev != torch.device("cuda", 0) or not np.array_equal(copied, serial[0])):
+        raise AssertionError("lanes: the copy of CPU bundles onto cuda:0 failed")
+    del cpu, cpu_coarse, cpu_fine, lane_coarse, lane_fine
+
+    log(f"[parallel] kernel launches of the path (ranks and lanes): {total}")
+    no_attic(total, "parallel")
+    log(f"[parallel] phase wall {time.monotonic() - t_phase:.1f} s")
+    return total, shapes
+
+
 def grad_agreement(names, got, want) -> dict:
     """Two gradients (lists of tensors in ``names`` order) compared in f64:
     per-tensor cosines, the whole gradient's cosine, the relative difference
@@ -1807,7 +2401,8 @@ def kernel_lines(measured, path_counts):
     ``timed_ms_by_path`` splits ``ms`` by the path that first launched the
     shape); ``path_ms`` weighs each shape's time by its launches on that
     path; ``launches`` is over every path driven (the four main paths, the
-    HTTP entry point, the command line and the kernel bench, split in ``launches_by_path``; the bench's count the
+    HTTP entry point, the command line, the parallel path and the kernel
+    bench, split in ``launches_by_path``; the bench's count the
     kernels its CUDA graphs replayed). ``max_abs_err`` also covers the
     attic phase's untimed cases. ``library_ms`` is null where no single
     library call computes the kernel's function (the instance-norm apply
@@ -1965,6 +2560,7 @@ def main() -> int:
             phase_grad_reference(dev, mcfg, f"renal_anatomy, deep supervision, "
                                  f"fused_kernel={version},", floors=False)
         phase_overfit(dev, cases)
+        parallel_counts, parallel_shapes = phase_parallel(dev, cases)
         del cases
         torch.cuda.empty_cache()
         bench_counts, bench_shapes = phase_kernel_bench(dev)
@@ -1972,6 +2568,7 @@ def main() -> int:
                                        "cli": cli_shapes, "train": train_shapes,
                                        "serve_renal": renal_shapes,
                                        "train_renal": rtrain_shapes,
+                                       "parallel": parallel_shapes,
                                        "kernel_bench": bench_shapes})
         for name, cases in phase_attic(dev).items():
             measured[name] += cases
@@ -1981,6 +2578,7 @@ def main() -> int:
                                       "cli": cli_counts, "train": train_counts,
                                       "serve_renal": renal_counts,
                                       "train_renal": rtrain_counts,
+                                      "parallel": parallel_counts,
                                       "kernel_bench": bench_counts})
     if len(kernels) != 10:
         raise AssertionError(f"expected ten kernels, got {[k['name'] for k in kernels]}")

@@ -115,20 +115,30 @@ def _with_tta(bundle):
     )
 
 
-def _check_lanes(n: int) -> None:
-    """--device-lanes N: N <= 1 is the one device of ``--device``; the
-    port has no per-device serving lanes yet."""
-    if n > 1:
-        raise SystemExit(
-            f"--device-lanes {n}: multi-device serving lanes are not ported yet "
-            "(ROADMAP.md Queue A item 7); use --device-lanes 0 or 1"
-        )
+def _resolve_lanes(n: int, device):
+    """--device-lanes N → the first N local devices of ``--device``'s kind
+    (``cuda:0 .. cuda:N-1``; the CPU is one device), independent per-device
+    serving lanes (infer/cascade.py), or None when off (N <= 0)."""
+    if n <= 0:
+        return None
+    import torch
+
+    if torch.device(device).type == "cuda":
+        devs = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    else:
+        devs = [torch.device(device)]
+    if n > len(devs):
+        raise SystemExit(f"--device-lanes {n}: only {len(devs)} local device(s) present")
+    return devs[:n]
 
 
-def _pipelined_cascade(coarse, fine, case_iter, cascade_cfg, workers=2, device=None):
+def _pipelined_cascade(coarse, fine, case_iter, cascade_cfg, workers=2, device=None,
+                       devices=None):
     """(cid, vol, gt, pred) stream via the pipelined serving path — host
     pre/post of one case overlaps device compute of the next
-    (infer/cascade.py predict_cases); holds ≤ workers+1 volumes in RAM."""
+    (infer/cascade.py predict_cases); holds ≤ workers+1 volumes in RAM.
+    ``devices`` replicates the models and fans cases out across per-device
+    lanes."""
     from collections import deque
 
     from runet_tpu_torch.infer.cascade import predict_cases
@@ -141,7 +151,7 @@ def _pipelined_cascade(coarse, fine, case_iter, cascade_cfg, workers=2, device=N
             yield vol.data, vol.spacing
 
     for pred in predict_cases(coarse, fine, gen(), cascade_cfg, workers=workers,
-                              device=device):
+                              device=device, devices=devices):
         cid, vol, gt = meta.popleft()
         yield cid, vol, gt, pred
 
@@ -256,7 +266,7 @@ def cmd_predict(args):
         try:
             for cid, vol, _gt, pred in _pipelined_cascade(
                 coarse, fine, _iter_cases(Path(args.data)), fine_cfg.cascade,
-                workers=args.workers, device=args.device,
+                workers=args.workers, device=args.device, devices=args.lanes,
             ):
                 w.submit(emit, cid, vol, pred)
         finally:
@@ -454,7 +464,7 @@ def cmd_serve(args):
         try:
             for cid, vol, _gt, pred in _pipelined_cascade(
                 coarse, fine, case_iter(), fine_cfg.cascade,
-                workers=args.workers, device=args.device,
+                workers=args.workers, device=args.device, devices=args.lanes,
             ):
                 w.submit(emit_guarded, cid, vol, pred,
                          time.monotonic() - t_intake[cid])
@@ -500,7 +510,7 @@ def cmd_evaluate(args):
         if coarse is not None:
             yield from _pipelined_cascade(
                 coarse, fine, labeled_cases(), fine_cfg.cascade,
-                workers=args.workers, device=args.device,
+                workers=args.workers, device=args.device, devices=args.lanes,
             )
         else:
             for cid, vol, gt in labeled_cases():
@@ -560,14 +570,15 @@ def cmd_warmup(args):
             if i >= args.cases:
                 break
             cases.append((vol.data, vol.spacing))
-        stats.update(warmup_cases(coarse, fine, cases, fine_cfg.cascade, device=args.device))
+        stats.update(warmup_cases(coarse, fine, cases, fine_cfg.cascade, device=args.device,
+                                  devices=args.lanes))
     elif args.shape:
         # No data: an all-air dummy case warms the (canonical) coarse
         # stage; pair with --roi for the fine buckets.
         img = np.full(tuple(args.shape), -1000.0, np.float16)
         stats.update(
             warmup_cases(coarse, fine, [(img, tuple(args.spacing))], fine_cfg.cascade,
-                         device=args.device)
+                         device=args.device, devices=args.lanes)
         )
     if args.roi:
         shapes = [tuple(int(v) for v in s.split("x")) for s in args.roi]
@@ -700,7 +711,7 @@ def cmd_doctor(args):
 
 
 _LANES_HELP = ("serve cases across the first N local devices (independent "
-               "per-device lanes; 0 = single device; N > 1 is not ported yet)")
+               "per-device lanes; 0 = single device)")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -834,7 +845,8 @@ def build_parser() -> argparse.ArgumentParser:
                     help="explicit fine ROI buckets to warm, e.g. 192x160x256")
     sp.add_argument("--tta", action="store_true")
     sp.add_argument("--device-lanes", type=int, default=0,
-                    help="also warm each of the first N local devices (N > 1 is not ported yet)")
+                    help="also warm each of the first N local devices (each serving "
+                    "lane's device pays its own cold start)")
     sp.set_defaults(fn=cmd_warmup, on_device=True)
 
     sp = sub.add_parser("export", help="export a run's best checkpoint to a serving .npz")
@@ -910,8 +922,8 @@ def main(argv=None):
     if args.on_device:
         from runet_tpu_torch import resolve_device
 
-        _check_lanes(getattr(args, "device_lanes", 0))
         args.device = resolve_device(args.device)
+        args.lanes = _resolve_lanes(getattr(args, "device_lanes", 0), args.device)
     if args.debug:
         from runet_tpu_torch.utils.debug import sanitize
 

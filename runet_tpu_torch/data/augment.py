@@ -187,13 +187,28 @@ def augment_one(img, lab, params: AugmentParams, noise: torch.Tensor):
     return apply_intensity(img, params.scale, params.shift, noise), lab
 
 
+def sample_seed(seed: int, index: int) -> int:
+    """The generators' seed for sample ``index`` of the global batch of a
+    step seeded ``seed``: a sample's draws depend on its place in the
+    global batch only, not on the rank that holds it."""
+    return (seed * 0x9E3779B97F4A7C15 + (index + 1) * 0xBF58476D1CE4E5B9) % 2**63
+
+
 def augment_batch(images, labels, host_gen: torch.Generator, device_gen: torch.Generator,
-                  elastic: bool = False):
+                  elastic: bool = False, seed: int | None = None, first_index: int = 0):
     """images (B, X, Y, Z, C), labels (B, X, Y, Z): one independent draw
     per sample; choices from ``host_gen``, noise from ``device_gen`` (a
-    generator on the images' device)."""
+    generator on the images' device). With ``seed`` both generators are
+    seeded with ``sample_seed(seed, first_index + i)`` before sample i, so
+    a data-parallel rank holding samples ``first_index ..`` of the global
+    batch draws what one device draws for them; without it the samples
+    draw one after another from the generators as they stand."""
     out_i, out_l = [], []
-    for img, lab in zip(images, labels):
+    for i, (img, lab) in enumerate(zip(images, labels)):
+        if seed is not None:
+            s = sample_seed(seed, first_index + i)
+            host_gen.manual_seed(s)
+            device_gen.manual_seed(s)
         p = draw_params(host_gen, img.shape, elastic)
         noise = torch.randn(img.shape, generator=device_gen, device=img.device,
                             dtype=img.dtype)

@@ -16,11 +16,14 @@ The full volume never exists at fine spacing — only kidney ROIs do.
 ``InferConfig.tta`` wraps a stage's ``apply_fn`` with mirror-flip averaging
 (``infer/tta.py``); ``CascadeConfig.roi_batch > 1`` holds single-pass ROIs of
 the same bucket and runs each full group through one batched forward.
-Not ported yet (ROADMAP.md): multi-device serving lanes.
+``predict_cases(devices=...)`` serves cases on independent per-device lanes,
+each holding its own copy of the models (``bundle_on_device``).
 """
 
 from __future__ import annotations
 
+import contextlib
+import copy
 import dataclasses
 from typing import Any, Callable
 
@@ -67,11 +70,40 @@ class ModelBundle:
 
     @classmethod
     def from_model(cls, model: torch.nn.Module, cfg: Config) -> "ModelBundle":
-        """Bundle a loaded ``UNet3D`` with its config (``params`` is unused:
-        the module holds its weights)."""
-        return cls(apply_fn=lambda _p, w: model(w), params=None,
-                   num_classes=cfg.model.num_classes, preprocess=cfg.preprocess,
-                   infer=cfg.infer)
+        """Bundle a loaded ``UNet3D`` with its config: the module is the
+        bundle's ``params`` (it holds its weights), so a serving lane can
+        hold a copy of it on its own device (``bundle_on_device``)."""
+        return cls(apply_fn=module_apply, params=model, num_classes=cfg.model.num_classes,
+                   preprocess=cfg.preprocess, infer=cfg.infer)
+
+
+def module_apply(model: torch.nn.Module, windows: torch.Tensor) -> torch.Tensor:
+    """``apply_fn`` of a bundle whose ``params`` is the module itself."""
+    return model(windows)
+
+
+def _params_on(params, device: torch.device):
+    """``params`` with every module in it (itself, or the members of an
+    ensemble's list) on ``device``: one already there is shared, any other
+    copied whole; anything else is returned as it is."""
+    if isinstance(params, torch.nn.Module):
+        on = {p.device for p in params.parameters()} | {b.device for b in params.buffers()}
+        if on <= {device}:
+            return params
+        return copy.deepcopy(params).to(device)
+    if isinstance(params, (list, tuple)):
+        return type(params)(_params_on(p, device) for p in params)
+    return params
+
+
+def bundle_on_device(bundle: ModelBundle, device) -> ModelBundle:
+    """Copy of ``bundle`` with its modules on ``device``; one serving lane
+    of ``predict_cases(devices=...)``. A lane on the bundle's own device
+    shares its module."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return dataclasses.replace(bundle, params=_params_on(bundle.params, dev))
 
 
 def _to_transfer_dtype(image: np.ndarray, pp: PreprocessConfig | None = None) -> np.ndarray:
@@ -278,9 +310,15 @@ def predict_case(
     """Full cascade on ``device`` (CUDA unless named); returns uint8 labels
     at the native shape."""
     dev = resolve_device(device)
-    with torch.inference_mode():
+    with torch.inference_mode(), _on(dev):
         return _predict_case(coarse, fine, np.asarray(image), native_spacing, cascade,
                              postprocess, timer, dev)
+
+
+def _on(dev: torch.device):
+    """The current-device guard of a case on ``dev`` (a lane's device, so
+    the library calls and streams it makes are that device's)."""
+    return torch.cuda.device(dev) if dev.type == "cuda" else contextlib.nullcontext()
 
 
 def _predict_case(coarse, fine, image, native_spacing, cascade, postprocess, timer, dev):
@@ -461,6 +499,19 @@ def _predict_case(coarse, fine, image, native_spacing, cascade, postprocess, tim
     return native_canvas
 
 
+def device_lanes(coarse: ModelBundle, fine: ModelBundle, devices):
+    """One (device, coarse, fine) serving lane per entry of ``devices``, the
+    bundles' params on that device; lanes on one device share one copy."""
+    on: dict = {}
+    lanes = []
+    for d in devices:
+        dev = resolve_device(d)
+        if dev not in on:
+            on[dev] = (bundle_on_device(coarse, dev), bundle_on_device(fine, dev))
+        lanes.append((dev, *on[dev]))
+    return lanes
+
+
 def predict_cases(
     coarse: ModelBundle,
     fine: ModelBundle,
@@ -469,20 +520,39 @@ def predict_cases(
     postprocess: bool = True,
     workers: int = 2,
     device=None,
+    devices=None,
 ):
     """Pipelined multi-case cascade: ``workers`` cases in flight on a thread
     pool, so case i's host work (striding, components, paste) overlaps case
     i+1's device work. Results are yielded IN ORDER; ``cases`` may be lazy
-    (at most ``workers + 1`` cases are held)."""
+    (at most ``workers + 1`` cases are held).
+
+    The workers take serving lanes from a queue, one lane per case, and run
+    the whole case there. Without ``devices`` there are ``workers`` lanes
+    on ``device``. ``devices`` (a list of devices) serves on independent
+    lanes, one per entry: each holds the bundles on its device
+    (``bundle_on_device``; a lane on the bundles' own device shares their
+    modules). Cases share nothing, so lanes need no collectives. With
+    ``devices`` set, ``workers`` is the lane count and ``device`` is not
+    read."""
+    import queue
     from collections import deque
     from concurrent.futures import ThreadPoolExecutor
 
-    dev = resolve_device(device)
+    lanes = device_lanes(coarse, fine, devices or [device] * max(1, workers))
+    free: queue.SimpleQueue = queue.SimpleQueue()
+    for lane in lanes:
+        free.put(lane)
+    workers = len(lanes)
 
     def run_one(img, sp):
-        return predict_case(coarse, fine, img, sp, cascade, postprocess, device=dev)
+        dev, c_d, f_d = free.get()
+        try:
+            return predict_case(c_d, f_d, img, sp, cascade, postprocess, device=dev)
+        finally:
+            free.put((dev, c_d, f_d))
 
-    with ThreadPoolExecutor(max_workers=max(1, workers)) as pool:
+    with ThreadPoolExecutor(max_workers=workers) as pool:
         inflight: deque = deque()
         for img, sp in cases:
             inflight.append(pool.submit(run_one, img, sp))

@@ -5,8 +5,9 @@ Counterpart of ``runet_tpu/infer/ensemble.py``. An ensemble IS a
 ``ModelBundle``, so the sliding window, single pass, TTA and the cascade
 compose with it unchanged. The JAX package stacks the K parameter trees and
 scans over them; here the bundle's ``params`` is the list of the members'
-own ``params`` (a loaded ``UNet3D`` holds its weights, so each member's
-``apply_fn`` closes over its module) and the members run one after another:
+own ``params`` (for a loaded ``UNet3D`` the module itself, so a serving
+lane's ``bundle_on_device`` copies each member) and the members run one
+after another:
 member k's activations are freed before member k + 1 runs, so peak memory
 is one member's forward plus one f32 probability volume.
 

@@ -18,9 +18,10 @@ Both return per-item wall-clock seconds (device synchronized) and
 ``total_s``. ``warmup_cases`` runs its cases on a pool of ``workers``
 threads, as the JAX package does and as ``predict_cases`` serves them, each
 case timed inside its own callable; the threads share one device, so a
-case's seconds include the device work of the cases beside it.
-``warmup_roi_buckets`` runs its items one after another. The JAX package's
-``devices=`` lanes wait for multi-device serving.
+case's seconds include the device work of the cases beside it. With
+``devices`` it warms each serving lane of ``predict_cases(devices=...)``
+(every lane's first case pays its device's cold start), all lane-cases at
+once. ``warmup_roi_buckets`` runs its items one after another.
 """
 
 from __future__ import annotations
@@ -40,31 +41,34 @@ def _sync(dev: torch.device) -> None:
 
 
 def warmup_cases(coarse, fine, cases, cascade: CascadeConfig = CascadeConfig(),
-                 workers: int = 2, device=None) -> dict[str, float]:
+                 workers: int = 2, device=None, devices=None) -> dict[str, float]:
     """Warm everything the given cases (an iterable of (image,
     native_spacing)) touch on ``device`` (CUDA unless named), ``workers``
     cases at a time; returns ``{"case<i>_s": seconds, ..., "total_s":
-    seconds}``."""
+    seconds}``. With ``devices``, every case on each lane's device
+    (``predict_cases(devices=...)``'s lanes), ``workers`` x lanes at a
+    time: ``{"lane<j>_case<i>_s": seconds, ..., "total_s": seconds}``."""
     from concurrent.futures import ThreadPoolExecutor
 
-    from runet_tpu_torch.infer.cascade import predict_case
+    from runet_tpu_torch.infer.cascade import device_lanes, predict_case
 
-    dev = resolve_device(device)
-
-    def timed(img, sp):
+    def timed(img, sp, dev, c, f):
         # Timed inside the callable: completion deltas read on the caller
         # thread would give every case after the first almost nothing.
         t0 = time.monotonic()
-        predict_case(coarse, fine, img, sp, cascade, device=dev)
+        predict_case(c, f, img, sp, cascade, device=dev)
         _sync(dev)
         return time.monotonic() - t0
 
     out: dict[str, float] = {}
     t_all = time.monotonic()
-    with ThreadPoolExecutor(max_workers=max(1, workers)) as pool:
-        futs = [pool.submit(timed, img, sp) for img, sp in cases]
-        for i, f in enumerate(futs):
-            out[f"case{i}_s"] = round(f.result(), 2)
+    cases = list(cases)
+    lanes = device_lanes(coarse, fine, devices or [device])
+    with ThreadPoolExecutor(max_workers=max(1, workers) * len(lanes)) as pool:
+        futs = {(j, i): pool.submit(timed, img, sp, *lane)
+                for j, lane in enumerate(lanes) for i, (img, sp) in enumerate(cases)}
+        for (j, i), f in futs.items():
+            out[f"lane{j}_case{i}_s" if devices else f"case{i}_s"] = round(f.result(), 2)
     out["total_s"] = round(time.monotonic() - t_all, 2)
     return out
 

@@ -405,4 +405,28 @@ reduce_moments(const float* __restrict__ psum, const float* __restrict__ psq,
   }
 }
 
+// A launcher sets its kernel's dynamic shared-memory size and carveout once
+// per device: cudaFuncSetAttribute acts on the current device's copy of the
+// function, so one flag per process would leave every other device's copy
+// at the 48 KB default and its launches would fail. `done` is the
+// launcher's own table, a static local of it, indexed by cudaGetDevice (the
+// wrappers launch under a guard of the tensors' device); a device past the
+// table sets the attributes on every launch.
+constexpr int MAX_DEVICES = 64;
+
+template <class K>
+static int set_smem_attrs(K* kernel, int smem_bytes, bool (&done)[MAX_DEVICES]) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  if (dev < MAX_DEVICES && done[dev]) return 0;
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+  if (e != cudaSuccess) return (int)e;
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                           cudaSharedmemCarveoutMaxShared);
+  if (e != cudaSuccess) return (int)e;
+  if (dev < MAX_DEVICES) done[dev] = true;
+  return 0;
+}
+
 }  // namespace convk

@@ -282,18 +282,9 @@ template <bool VX, bool VG>
 static int dw1_launch_kernel(const bf16* x, const bf16* g, float* part, int B, int D, int C, int H,
                       int W, int Cout, int n_splits, cudaStream_t st) {
   using G = DwGeom<1>;
-  static bool attr_done = false;
-  if (!attr_done) {
-    cudaError_t e = cudaFuncSetAttribute(conv3x3_dw_s1_kernel<VX, VG>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         DwS1::SMEM_BYTES);
-    if (e != cudaSuccess) return (int)e;
-    e = cudaFuncSetAttribute(conv3x3_dw_s1_kernel<VX, VG>,
-                             cudaFuncAttributePreferredSharedMemoryCarveout,
-                             cudaSharedmemCarveoutMaxShared);
-    if (e != cudaSuccess) return (int)e;
-    attr_done = true;
-  }
+  static bool attr_done[convk::MAX_DEVICES] = {};
+  if (int e = convk::set_smem_attrs(conv3x3_dw_s1_kernel<VX, VG>, DwS1::SMEM_BYTES, attr_done))
+    return e;
   const int nh = (H + G::TH - 1) / G::TH, nw = (W + G::TW - 1) / G::TW;
   const int nci = (C + G::CI_T - 1) / G::CI_T, nco = (Cout + G::CO_T - 1) / G::CO_T;
   const int64_t n_ktiles = (int64_t)B * D * nh * nw;

@@ -437,18 +437,9 @@ template <bool VX, bool VG>
 static int dw2_launch_kernel(const bf16* x, const bf16* g, float* part, int B, int D, int C,
                              int H, int W, int Cout, int n_splits, cudaStream_t st) {
   using G = DwGeom<2>;
-  static bool attr_done = false;
-  if (!attr_done) {
-    cudaError_t e = cudaFuncSetAttribute(conv3x3_dw_s2_kernel<VX, VG>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         DwS2::SMEM_BYTES);
-    if (e != cudaSuccess) return (int)e;
-    e = cudaFuncSetAttribute(conv3x3_dw_s2_kernel<VX, VG>,
-                             cudaFuncAttributePreferredSharedMemoryCarveout,
-                             cudaSharedmemCarveoutMaxShared);
-    if (e != cudaSuccess) return (int)e;
-    attr_done = true;
-  }
+  static bool attr_done[convk::MAX_DEVICES] = {};
+  if (int e = convk::set_smem_attrs(conv3x3_dw_s2_kernel<VX, VG>, DwS2::SMEM_BYTES, attr_done))
+    return e;
   const int Do = D / 2, Ho = H / 2, Wo = W / 2;
   const int nh = (Ho + G::TH - 1) / G::TH, nw = (Wo + G::TW - 1) / G::TW;
   const int nci = (C + G::CI_T - 1) / G::CI_T, nco = (Cout + DwS2::CO_B - 1) / DwS2::CO_B;

@@ -311,18 +311,9 @@ static int w_map(CUtensorMap* map, const void* wt, int Cin_pad, int Cout_pad) {
 template <class T, bool VEC>
 static int launch_tile(const bf16* x, const bf16* wt, bf16* y, int B, int D, int C, int H, int W,
                        int Cout, int Cin_pad, int Cout_pad, cudaStream_t st) {
-  static bool attr_done = false;
-  if (!attr_done) {
-    cudaError_t e = cudaFuncSetAttribute(conv3x3_ndhwc_kernel<T, VEC>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         T::SMEM_BYTES);
-    if (e != cudaSuccess) return (int)e;
-    e = cudaFuncSetAttribute(conv3x3_ndhwc_kernel<T, VEC>,
-                             cudaFuncAttributePreferredSharedMemoryCarveout,
-                             cudaSharedmemCarveoutMaxShared);
-    if (e != cudaSuccess) return (int)e;
-    attr_done = true;
-  }
+  static bool attr_done[convk::MAX_DEVICES] = {};
+  if (int e = convk::set_smem_attrs(conv3x3_ndhwc_kernel<T, VEC>, T::SMEM_BYTES, attr_done))
+    return e;
   CUtensorMap tmx{}, tmw{};
   int e = w_map<T>(&tmw, wt, Cin_pad, Cout_pad);
   if (e == 0 && VEC) e = x_map<T>(&tmx, x, B, D, H, W, C);

@@ -243,18 +243,9 @@ template <class T, bool VEC>
 static int launch_tile(const bf16* x, const bf16* wt, bf16* y, float* psum, float* psq, int B,
                        int D, int C, int H, int W, int Cout, int Cin_pad, int Cout_pad,
                        cudaStream_t st) {
-  static bool attr_done = false;
-  if (!attr_done) {
-    cudaError_t e = cudaFuncSetAttribute(conv3x3_v3_kernel<T, VEC>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         T::SMEM_BYTES);
-    if (e != cudaSuccess) return (int)e;
-    e = cudaFuncSetAttribute(conv3x3_v3_kernel<T, VEC>,
-                             cudaFuncAttributePreferredSharedMemoryCarveout,
-                             cudaSharedmemCarveoutMaxShared);
-    if (e != cudaSuccess) return (int)e;
-    attr_done = true;
-  }
+  static bool attr_done[convk::MAX_DEVICES] = {};
+  if (int e = convk::set_smem_attrs(conv3x3_v3_kernel<T, VEC>, T::SMEM_BYTES, attr_done))
+    return e;
   const int nh = (H + T::TH - 1) / T::TH, nw = (W + T::TW - 1) / T::TW;
   const int nco = (Cout_pad + T::CO_T - 1) / T::CO_T;
   dim3 grid(nh * nw, D, B * nco);

@@ -463,18 +463,9 @@ template <class T, bool VX>
 static int launch_tile(const bf16* x, const bf16* wt, bf16* y, float* psum, float* psq, int B,
                        int D, int C, int H, int W, int Cout, int Cin_pad, int Cout_pad,
                        cudaStream_t st) {
-  static bool attr_done = false;
-  if (!attr_done) {
-    cudaError_t e = cudaFuncSetAttribute(conv3x3_s2_stats_kernel<T, VX>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         T::SMEM_BYTES);
-    if (e != cudaSuccess) return (int)e;
-    e = cudaFuncSetAttribute(conv3x3_s2_stats_kernel<T, VX>,
-                             cudaFuncAttributePreferredSharedMemoryCarveout,
-                             cudaSharedmemCarveoutMaxShared);
-    if (e != cudaSuccess) return (int)e;
-    attr_done = true;
-  }
+  static bool attr_done[convk::MAX_DEVICES] = {};
+  if (int e = convk::set_smem_attrs(conv3x3_s2_stats_kernel<T, VX>, T::SMEM_BYTES, attr_done))
+    return e;
   const int Do = D / 2, Ho = H / 2, Wo = W / 2;
   const int nh = (Ho + T::TH - 1) / T::TH, nw = (Wo + T::TW - 1) / T::TW;
   const int nco = Cout_pad / T::CO_T;

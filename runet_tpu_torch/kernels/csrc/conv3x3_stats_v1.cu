@@ -361,17 +361,9 @@ template <bool VX>
 int launch_kernel(const bf16* x, const bf16* wt, bf16* y, float* psum, float* psq, int B,
                   int D, int C, int H, int W, int Cout, int Cin_pad, int Cout_pad,
                   cudaStream_t st) {
-  static bool attr_done = false;
-  if (!attr_done) {
-    cudaError_t e = cudaFuncSetAttribute(
-        conv3x3_stats_v1_kernel<VX>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
-    if (e != cudaSuccess) return (int)e;
-    e = cudaFuncSetAttribute(conv3x3_stats_v1_kernel<VX>,
-                             cudaFuncAttributePreferredSharedMemoryCarveout,
-                             cudaSharedmemCarveoutMaxShared);
-    if (e != cudaSuccess) return (int)e;
-    attr_done = true;
-  }
+  static bool attr_done[convk::MAX_DEVICES] = {};
+  if (int e = convk::set_smem_attrs(conv3x3_stats_v1_kernel<VX>, SMEM_BYTES, attr_done))
+    return e;
   const int nh = (H + TH - 1) / TH, nw = (W + TW - 1) / TW, nco = Cout_pad / CO_T;
   dim3 grid(nh * nw, D, B * nco);
   conv3x3_stats_v1_kernel<VX><<<grid, NTHREADS, SMEM_BYTES, st>>>(

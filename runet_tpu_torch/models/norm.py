@@ -6,6 +6,12 @@ stats), statistics in f32 whatever the compute dtype. The variance is the
 single-pass E[x²]−µ² clamped at 0 (not two-pass), and the output is cast to
 the compute dtype before the activation that follows.
 
+With ``axis_name`` set (``ModelConfig.spatial_axis``, spatial-partition
+inference), the per-rank moments are averaged over the process group bound
+to that mesh axis (``parallel/comm.py``) before the variance, as the JAX
+package's ``pmean`` does; equal-size shards make the mean of the ranks'
+moments the moments of the whole volume.
+
 In training, autograd saves the f32 intermediates of this plain-torch
 normalisation (about four f32 copies of the activation per conv block).
 """
@@ -22,9 +28,11 @@ class InstanceNorm(nn.Module):
     are frozen f32 (serving)."""
 
     def __init__(self, channels: int, eps: float = 1e-5, dtype=torch.bfloat16,
-                 affine: bool = True, device=None, param_dtype=None):
+                 affine: bool = True, device=None, param_dtype=None,
+                 axis_name: str | None = None):
         super().__init__()
         self.eps = eps
+        self.axis_name = axis_name
         self.dtype = dtype
         self.affine = affine
         if affine:
@@ -50,6 +58,10 @@ class InstanceNorm(nn.Module):
         else:
             mean = moments[0].float().reshape(bshape)
             sq = moments[1].float().reshape(bshape)
+        if self.axis_name is not None:
+            from runet_tpu_torch.parallel.comm import axis_mean
+
+            mean, sq = axis_mean((mean, sq), self.axis_name)
         var = torch.clamp_min(sq - mean * mean, 0.0)
         y = (xf - mean) * torch.rsqrt(var + self.eps)
         if self.affine:

@@ -63,9 +63,10 @@ class ConvNormAct(nn.Module):
     def __init__(self, cin: int, features: int, stride: int = 1,
                  negative_slope: float = 1e-2, norm_eps: float = 1e-5,
                  dtype=torch.bfloat16, device=None, param_dtype=None,
-                 fused_kernel: str = "v2m"):
+                 fused_kernel: str = "v2m", axis_name: str | None = None):
         """``param_dtype`` given: a trainable kernel in that dtype (the
-        train model's f32 master); otherwise a frozen one in ``dtype``."""
+        train model's f32 master); otherwise a frozen one in ``dtype``.
+        ``axis_name``: the mesh axis the norm's moments are averaged over."""
         super().__init__()
         if stride not in (1, 2):
             raise ValueError(f"stride must be 1 or 2, got {stride}")
@@ -77,7 +78,7 @@ class ConvNormAct(nn.Module):
         self.dtype = dtype
         self.kernel = _param((3, 3, 3, cin, features), dtype, device, param_dtype)
         self.InstanceNorm_0 = InstanceNorm(features, norm_eps, dtype, device=device,
-                                           param_dtype=param_dtype)
+                                           param_dtype=param_dtype, axis_name=axis_name)
         self._packed = None  # (key of the kernel it was packed from, packed)
 
     def packed_kernel(self) -> torch.Tensor:
@@ -225,20 +226,16 @@ class UNet3D(nn.Module):
 
     Spatial dims must be divisible by 2**(num_levels - 1). ``trainable``:
     f32 master weights with gradients (``create_train_model``); otherwise
-    frozen serving weights in the compute dtype. With
+    frozen serving weights in the compute dtype. With ``cfg.spatial_axis``
+    every norm averages its moments over the ranks of that mesh axis
+    (spatial-partition inference, ``parallel/spatial.py``); a forward with
+    no process group bound to the axis raises ``RuntimeError``. With
     ``cfg.deep_supervision`` the aux heads ``ds1`` and ``ds2`` (decoder
     levels 1 and 2, where depth allows) are in the parameter tree whatever
     the call mode."""
 
     def __init__(self, cfg: ModelConfig, device=None, trainable: bool = False):
         super().__init__()
-        if cfg.spatial_axis is not None:
-            # The reference all-reduces the InstanceNorm moments over this
-            # mesh axis; without spatial partitioning each shard would
-            # normalise by its own moments.
-            raise NotImplementedError(
-                f"ModelConfig.spatial_axis={cfg.spatial_axis!r}: spatial partitioning is not "
-                "ported yet (ROADMAP.md Queue A, the parallelism item)")
         self.cfg = cfg
         self.dtype = getattr(torch, cfg.compute_dtype)
         # Recompute each block in the backward; only where there is one.
@@ -247,7 +244,7 @@ class UNet3D(nn.Module):
         param_dtype = getattr(torch, cfg.param_dtype) if trainable else None
         kw = dict(negative_slope=cfg.negative_slope, norm_eps=cfg.norm_eps,
                   dtype=self.dtype, device=device, param_dtype=param_dtype,
-                  fused_kernel=cfg.fused_kernel)
+                  fused_kernel=cfg.fused_kernel, axis_name=cfg.spatial_axis)
         cin = cfg.in_channels
         for lvl, f in enumerate(feats):
             self.add_module(f"enc{lvl}", EncoderBlock(cin, f, downsample=lvl > 0, **kw))

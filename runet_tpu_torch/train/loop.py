@@ -1,4 +1,4 @@
-"""Training loop on one device.
+"""Training loop, on one device or data-parallel over the ranks of a mesh.
 
 Counterpart of ``runet_tpu/train/loop.py``: one step (augment → forward →
 backward → optimizer update) per batch from the prefetching ``PatchLoader``,
@@ -9,8 +9,16 @@ checkpoint.
 ``steps_per_dispatch = K > 1`` runs K micro-steps per call on a (K, B, ...)
 superbatch with no host read between them; a chunk starts K-aligned and
 spans a full K, and the K-misaligned resume case and the tail of a run fall
-back to single steps on slices of the same superbatch. One device only: a
-multi-device request (``mesh``) raises ``NotImplementedError``.
+back to single steps on slices of the same superbatch.
+
+Data parallelism (``mesh``, a ``DeviceMesh`` from ``parallel/comm.py``; or
+no mesh inside a process group of more than one rank, which then trains
+over the whole world): each rank samples its ``batch / n`` patches with
+seed ``seed + its data index``, runs ``parallel/dp.py``'s step (gradients
+and aux averaged over the ranks before the update; augmentation draws
+keyed by global sample index), and rank 0 alone logs, validates and writes
+checkpoints while the others wait at a barrier. Resume loads the
+checkpoint on every rank, onto that rank's device.
 """
 
 from __future__ import annotations
@@ -93,6 +101,22 @@ def _step_seed(seed: int, step: int) -> int:
     return (seed * 1_000_003 + step) % (2**63)
 
 
+def _resolve_mesh(mesh):
+    """The data-parallel mesh of a run: ``mesh`` itself (a ``DeviceMesh``),
+    the whole world when no mesh is given inside a process group of more
+    than one rank, else None (one device)."""
+    from runet_tpu_torch.parallel import comm
+
+    if mesh is None:
+        return comm.make_mesh() if comm.world_size() > 1 else None
+    from torch.distributed.device_mesh import DeviceMesh
+
+    if not isinstance(mesh, DeviceMesh):
+        raise TypeError(f"mesh must be a torch.distributed DeviceMesh "
+                        f"(parallel.comm.make_mesh), got {type(mesh).__name__}")
+    return mesh
+
+
 def train(
     cfg: Config,
     data_root: str | Path | None = None,
@@ -106,8 +130,9 @@ def train(
     cache_dir: str | Path | None = None,
     device=None,
 ):
-    """Train a model per config on ``device`` (CUDA unless named); returns
-    (state, last aux dict of 0-d tensors)."""
+    """Train a model per config on ``device`` (CUDA unless named; under a
+    mesh, this rank's device); returns (state, last aux dict of 0-d
+    tensors)."""
     out_dir = Path(out_dir)
     steps = max_steps if max_steps is not None else cfg.train.steps
     if cfg.train.val_full_every > 0:
@@ -119,8 +144,7 @@ def train(
                 f"val_full_every={cfg.train.val_full_every} must be a multiple "
                 f"of val_every={cfg.train.val_every}"
             )
-    if mesh is not None:
-        raise NotImplementedError("multi-device data parallelism is not ported yet")
+    mesh = _resolve_mesh(mesh)
     K = max(1, cfg.train.steps_per_dispatch)
     if K > 1:
         intervals = {"log_every": log_every, "val_every": cfg.train.val_every,
@@ -133,6 +157,13 @@ def train(
             # would silently skip its events.
             raise ValueError(f"steps_per_dispatch={K} requires intervals divisible by it; "
                              f"got {bad}")
+    n_data, d_index, lead = 1, 0, True
+    if mesh is not None:
+        from runet_tpu_torch.parallel import comm
+
+        n_data, d_index, lead = comm.data_size(mesh), comm.data_index(mesh), comm.rank() == 0
+        if device is None:
+            device = comm.device()
     dev = resolve_device(device)
 
     if cases is None:
@@ -149,8 +180,12 @@ def train(
             val_cases = cases  # tiny/smoke runs validate on train cases
 
     batch = cfg.train.batch_size
+    if batch % n_data:
+        raise ValueError(f"global batch {batch} not divisible by {n_data} devices")
     model = create_train_model(cfg.model, dev)
     init_params(model, torch.Generator().manual_seed(cfg.train.seed))
+    if mesh is not None:
+        comm.replicate(mesh, model)
     state = create_train_state(model, cfg.train)
 
     ckpt = CheckpointManager(out_dir / "ckpt", keep=cfg.train.keep_checkpoints)
@@ -159,16 +194,25 @@ def train(
         state.load_state_dict(ckpt.restore(map_location=dev))
         start_step = state.step
 
-    logger = MetricsLogger(out_dir)
-    logger.write_config(cfg.to_json())
+    logger = MetricsLogger(out_dir) if lead else None
+    if lead:
+        logger.write_config(cfg.to_json())
 
     loss_kw = {"tversky_alpha": cfg.train.tversky_alpha, "tversky_beta": cfg.train.tversky_beta}
     step_kw = dict(augment=cfg.train.augment, elastic=cfg.train.elastic, loss_kwargs=loss_kw)
-    train_step = make_train_step(model, **step_kw)
-    multi_step = make_multi_train_step(model, K, **step_kw) if K > 1 else None
+    if mesh is not None:
+        from runet_tpu_torch.parallel.dp import make_dp_multi_train_step, make_dp_train_step
+
+        train_step = make_dp_train_step(model, mesh, **step_kw)
+        multi_step = make_dp_multi_train_step(model, mesh, K, **step_kw) if K > 1 else None
+    else:
+        train_step = make_train_step(model, **step_kw)
+        multi_step = make_multi_train_step(model, K, **step_kw) if K > 1 else None
     eval_step = make_eval_step(model)
-    loader = PatchLoader(cases, batch_size=batch, patch_size=cfg.train.patch_size,
-                         fg_prob=cfg.train.fg_prob, seed=cfg.train.seed, device=dev,
+    # Each rank draws its own share of the global batch, decorrelated by
+    # its data index.
+    loader = PatchLoader(cases, batch_size=batch // n_data, patch_size=cfg.train.patch_size,
+                         fg_prob=cfg.train.fg_prob, seed=cfg.train.seed + d_index, device=dev,
                          stack_steps=K)
     generators = (torch.Generator(), torch.Generator(device=dev))
 
@@ -183,7 +227,17 @@ def train(
     steps_since_log = 0
 
     def post_step(done, aux):
-        """Events after global step count ``done`` completed."""
+        """Events after global step count ``done`` completed; under a mesh
+        rank 0's alone, the other ranks waiting at a barrier when one
+        validates or writes a checkpoint."""
+        if lead:
+            events(done, aux)
+        if mesh is not None and (
+                cfg.train.val_every > 0 and (done % cfg.train.val_every == 0 or done == steps)
+                or done % cfg.train.ckpt_every == 0):
+            comm.barrier()
+
+    def events(done, aux):
         nonlocal t_last, steps_since_log
         if done % log_every == 0 or done == steps:
             aux_host = {k: float(v) for k, v in aux.items()}
@@ -242,6 +296,8 @@ def train(
                     post_step(step, aux)
     finally:
         loader.close()
-        logger.close()
-
+        if logger is not None:
+            logger.close()
+    if mesh is not None:
+        comm.barrier()  # rank 0's last checkpoint is on disk when any rank returns
     return state, aux

@@ -194,19 +194,25 @@ def create_train_state(model: torch.nn.Module, cfg: TrainConfig) -> TrainState:
 
 
 def make_train_step(model, augment: bool = False, elastic: bool = False,
-                    loss_kwargs: dict | None = None):
+                    loss_kwargs: dict | None = None, reduce_grads=None):
     """One step: compact-dtype upcast, labels clamped to K−1, per-sample
     augmentation, forward + backward + optimizer update. With
     ``model.cfg.deep_supervision`` the loss is ``deep_supervised_loss`` over
     the model's aux logits.
 
-    Returns ``train_step(state, images, labels, generators=None, seed=None)
-    -> aux``: images (B, X, Y, Z, C) and labels (B, X, Y, Z) on the model's
-    device; ``generators`` the (host, device) ``torch.Generator`` pair the
-    augmentation draws from (required with ``augment``), both seeded with
-    ``seed`` first when it is given. ``aux`` holds the loss terms and
+    Returns ``train_step(state, images, labels, generators=None, seed=None,
+    sample_offset=0) -> aux``: images (B, X, Y, Z, C) and labels (B, X, Y,
+    Z) on the model's device; ``generators`` the (host, device)
+    ``torch.Generator`` pair the augmentation draws from (required with
+    ``augment``), reseeded per sample from ``seed`` and the sample's index
+    in the global batch (``sample_offset`` + its index here) when ``seed``
+    is given (``augment_batch``). ``aux`` holds the loss terms and
     ``grad_norm``, the global gradient norm BEFORE clipping, as 0-d tensors
-    on the device; the state is updated in place."""
+    on the device; the state is updated in place.
+
+    ``reduce_grads(grads, aux) -> (grads, aux)`` runs between the gradient
+    and the clip-and-update (data parallelism averages both over the ranks
+    there, ``parallel/dp.py``); ``grad_norm`` is then the reduced norm."""
     from runet_tpu_torch.data.augment import augment_batch
     from runet_tpu_torch.train.losses import deep_supervised_loss, dice_ce_loss
 
@@ -214,16 +220,15 @@ def make_train_step(model, augment: bool = False, elastic: bool = False,
     num_classes = model.cfg.num_classes
     deep = model.cfg.deep_supervision
 
-    def train_step(state: TrainState, images, labels, generators=None, seed=None):
+    def train_step(state: TrainState, images, labels, generators=None, seed=None,
+                   sample_offset: int = 0):
         images = images.float()
         labels = torch.clamp_max(labels.long(), num_classes - 1)
         if augment:
             if generators is None:
                 raise ValueError("augment=True needs the (host, device) generators")
-            if seed is not None:
-                for g in generators:
-                    g.manual_seed(seed)
-            images, labels = augment_batch(images, labels, *generators, elastic=elastic)
+            images, labels = augment_batch(images, labels, *generators, elastic=elastic,
+                                           seed=seed, first_index=sample_offset)
         params = state.params
         if deep:
             logits, aux_logits = state.model(images, deep_outputs=True)
@@ -232,6 +237,8 @@ def make_train_step(model, augment: bool = False, elastic: bool = False,
             loss, aux = dice_ce_loss(state.model(images), labels, **loss_kwargs)
         grads = torch.autograd.grad(loss, params)
         aux = {k: v.detach() for k, v in aux.items()}
+        if reduce_grads is not None:
+            grads, aux = reduce_grads(grads, aux)
         aux["grad_norm"] = global_norm(grads)
         state.optimizer.step(params, grads, aux["grad_norm"])
         state.step += 1
@@ -241,23 +248,24 @@ def make_train_step(model, augment: bool = False, elastic: bool = False,
 
 
 def make_multi_train_step(model, k: int, augment: bool = False, elastic: bool = False,
-                          loss_kwargs: dict | None = None):
+                          loss_kwargs: dict | None = None, reduce_grads=None):
     """K micro-steps per call, with no host read between them.
 
     Returns ``multi(state, images (K, B, ...), labels (K, B, ...),
-    generators=None, seeds=None) -> aux``: micro-step i is exactly
-    ``make_train_step``'s step on ``images[i], labels[i]`` with the
-    generators seeded by ``seeds[i]``, so its augmentation draws equal those
-    of K single steps draw for draw. ``aux`` scalars are the means over the
+    generators=None, seeds=None, sample_offset=0) -> aux``: micro-step i is
+    exactly ``make_train_step``'s step on ``images[i], labels[i]`` with the
+    step seed ``seeds[i]``, so its augmentation draws equal those of K
+    single steps draw for draw. ``aux`` scalars are the means over the
     chunk (``grad_norm`` included), 0-d tensors on the device: the one host
     synchronisation of a chunk is the caller's read of them."""
-    step = make_train_step(model, augment, elastic, loss_kwargs)
+    step = make_train_step(model, augment, elastic, loss_kwargs, reduce_grads)
 
-    def multi(state: TrainState, images, labels, generators=None, seeds=None):
+    def multi(state: TrainState, images, labels, generators=None, seeds=None,
+              sample_offset: int = 0):
         if images.shape[0] != k or labels.shape[0] != k:
             raise ValueError(f"expected a ({k}, B, ...) superbatch, got {tuple(images.shape)}")
         auxs = [step(state, images[i], labels[i], generators,
-                     None if seeds is None else seeds[i]) for i in range(k)]
+                     None if seeds is None else seeds[i], sample_offset) for i in range(k)]
         return {name: torch.stack([a[name] for a in auxs]).mean() for name in auxs[0]}
 
     return multi

@@ -1,37 +1,39 @@
-"""A conv + moments, attic NDHWC conv or stride-2 weight-gradient kernel of
-another checkout against this tree's.
+"""A conv kernel of another checkout against this tree's: any of the eight
+3x3x3 conv kernels (rows 1-8 of PERF.md's table).
 
     python -m runet_tpu_torch.utils.bit_compare OTHER_CU [--log SMOKE_LOG ...] [--time]
         [--out PATH]
 
-OTHER_CU is ``csrc/conv3x3_stats.cu``, ``csrc/conv3x3_stats_v2.cu``, the
-stride-2 ``csrc/conv3x3_s2_stats.cu``, the attic NDHWC conv
-``csrc/conv3x3_ndhwc.cu`` or the stride-2 weight gradient
-``csrc/conv3x3_s2_dw.cu`` of another checkout (a parent unpacked with ``git
-archive``). Both libraries are built (the other one as a probe library,
-this tree's as the port builds it) and loaded into one process; at every
-shape both run on the same random inputs (``torch.Generator`` seed 5). A
-conv + moments kernel runs through ``conv_common.launch_conv_stats`` with x
-aligned and at an odd element offset (the element-load instance); each of
-the change's runs, and the other library's odd-offset run, must give the
-other library's aligned y, sums and sqs bit for bit (``torch.equal``); the
-attic NDHWC conv likewise, with x (B, D, H, W, C) and y alone. The
-weight gradient runs through ``conv_common.launch_conv_dw`` aligned, with x
-at an odd offset and with g at an odd offset; each of those runs of both
-libraries must give the other library's aligned dw bit for bit. The shapes,
-(B, D, C, H, W, Cout) with x (B, D, C, H, W): ``DEFAULT_SHAPES`` (for the
-stride-2 kernels ``S2_DEFAULT_SHAPES`` and ``S2_DW_DEFAULT_SHAPES``, even,
-their output extents half the input's; for the attic NDHWC conv
-``NDHWC_DEFAULT_SHAPES``, (B, D, H, W, C, Cout) with x (B, D, H, W, C)),
-and every ``[kernels] <name> ...``
-line of the ``chip_smoke.py`` logs given with ``--log``, so a kernel change
-is held to its parent at every shape the main paths launched. With
-``--time`` both libraries are also timed at each logged shape on its
-aligned inputs, in turns (other, this tree, this tree, other; CUDA events
-over 20 launches after 3, the least of two rounds), into ``ms``: {shape:
-{"other": [t1, t2], "tree": [t1, t2]}}. Prints one JSON object with the
-card's name and power limit, the count of shapes and the unequal ones (also
-written to ``--out``); exits 1 if any is unequal. Needs a GPU and nvcc.
+OTHER_CU is one of the eight conv sources of another checkout's ``csrc/``
+(a parent unpacked with ``git archive``): the conv + moments kernels
+``conv3x3_stats.cu``, ``conv3x3_stats_v2.cu``, ``conv3x3_stats_v1.cu`` (x
+(B, D, H, C, W)) and the stride-2 ``conv3x3_s2_stats.cu``; the weight
+gradients ``conv3x3_dw.cu`` and ``conv3x3_s2_dw.cu``; the attic NDHWC convs
+``conv3x3_ndhwc.cu`` (y alone) and ``conv3x3_ndhwc_stats.cu`` (x (B, D, H,
+W, C)). Both libraries are built (the other one as a probe library, this
+tree's as the port builds it) and loaded into one process; at every shape
+both run on the same random inputs (``torch.Generator`` seed 5). A conv
+kernel runs through ``conv_common.launch_conv_stats`` with x aligned and at
+an odd element offset (the element-load instance); each of the change's
+runs, and the other library's odd-offset run, must give the other
+library's aligned y (and sums and sqs) bit for bit (``torch.equal``). A
+weight gradient runs through ``conv_common.launch_conv_dw`` aligned, with
+x at an odd offset and with g at an odd offset; each of those runs of both
+libraries must give the other library's aligned dw bit for bit. The
+shapes, x's extents in the kernel's layout and Cout: ``DEFAULT_SHAPES``
+((B, D, C, H, W, Cout); the v1 kernel's permuted to (B, D, H, C, W, Cout)),
+for the stride-2 kernels ``S2_DEFAULT_SHAPES`` and ``S2_DW_DEFAULT_SHAPES``
+(even, their output extents half the input's), for the attic NDHWC convs
+``NDHWC_DEFAULT_SHAPES`` ((B, D, H, W, C, Cout)), and every ``[kernels]
+<name> ...`` line of the ``chip_smoke.py`` logs given with ``--log``, so a
+kernel change is held to its parent at every shape the main paths
+launched. With ``--time`` both libraries are also timed at each logged
+shape on its aligned inputs, in turns (other, this tree, this tree, other;
+CUDA events over 20 launches after 3, the least of two rounds), into
+``ms``: {shape: {"other": [t1, t2], "tree": [t1, t2]}}. Prints one JSON
+object with the card's name and power limit, the count of shapes and the
+unequal ones (also written to ``--out``); exits 1 if any is unequal. Needs
+a GPU and nvcc.
 """
 
 from __future__ import annotations
@@ -48,8 +50,17 @@ import torch
 from runet_tpu_torch.kernels import build, conv_common
 from runet_tpu_torch.utils.health import card_line
 
-KERNELS = ("conv3x3_stats", "conv3x3_stats_v2", "conv3x3_s2_stats", "conv3x3_s2_dw",
-           "conv3x3_ndhwc")
+# name: (kind, x layout, stride); kind "stats" (conv + moments), "conv" (y
+# alone) or "dw" (weight gradient).
+SPEC = {
+    "conv3x3_stats": ("stats", "dchw", 1), "conv3x3_stats_v2": ("stats", "dchw", 1),
+    "conv3x3_stats_v1": ("stats", "dhcw", 1), "conv3x3_s2_stats": ("stats", "dchw", 2),
+    "conv3x3_dw": ("dw", "dchw", 1), "conv3x3_s2_dw": ("dw", "dchw", 2),
+    "conv3x3_ndhwc": ("conv", "dhwc", 1), "conv3x3_ndhwc_stats": ("stats", "dhwc", 1),
+}
+KERNELS = tuple(SPEC)
+# Where C and (D, H, W) sit in x of each layout.
+_AXES = {"dchw": (2, (1, 3, 4)), "dhcw": (3, (1, 2, 4)), "dhwc": (4, (1, 2, 3))}
 DEFAULT_SHAPES = [
     (2, 4, 32, 128, 128, 32), (2, 4, 64, 64, 64, 64), (2, 4, 128, 32, 32, 128),
     (2, 4, 256, 16, 16, 256), (2, 4, 320, 8, 8, 320), (1, 5, 1, 20, 128, 32),
@@ -153,16 +164,23 @@ def main(argv=None) -> int:
     if name not in KERNELS:
         print(f"bit_compare: {name} is not one of {KERNELS}", file=sys.stderr)
         return 1
-    dw, ndhwc = name == "conv3x3_s2_dw", name == "conv3x3_ndhwc"
+    kind, layout, stride = SPEC[name]
+    dw = kind == "dw"
     api = (conv_common._CONV_DW_API if dw else
-           conv_common._CONV_API if ndhwc else conv_common._CONV_STATS_API)
+           conv_common._CONV_STATS_API if kind == "stats" else conv_common._CONV_API)
     other = _other_library(args.other.resolve(), name, api)
     ours = conv_common._library(name, api)
-    stride = 1 if name in ("conv3x3_stats", "conv3x3_stats_v2") else 2
-    shapes = list(S2_DW_DEFAULT_SHAPES if dw else NDHWC_DEFAULT_SHAPES if ndhwc else
-                  S2_DEFAULT_SHAPES if stride == 2 else DEFAULT_SHAPES)
+    if layout == "dhwc":
+        shapes = NDHWC_DEFAULT_SHAPES
+    elif stride == 2:
+        shapes = S2_DW_DEFAULT_SHAPES if dw else S2_DEFAULT_SHAPES
+    elif layout == "dhcw":
+        shapes = [(B, D, H, C, W, Co) for B, D, C, H, W, Co in DEFAULT_SHAPES]
+    else:
+        shapes = DEFAULT_SHAPES
     logged = [s for log in args.log for s in logged_shapes(log.read_text(), name)]
-    shapes = list(dict.fromkeys(shapes + logged))
+    shapes = list(dict.fromkeys(list(shapes) + logged))
+    c_axis, dhw_axes = _AXES[layout]
 
     def run(lib, x, operand, cout):
         """One launch of ``lib``'s kernel: operand is g for the weight
@@ -171,13 +189,10 @@ def main(argv=None) -> int:
         try:
             if dw:
                 return (conv_common.launch_conv_dw(name, x, operand),)
-            if ndhwc:
-                B, D, H, W, C = x.shape
-                return conv_common.launch_conv_stats(name, x, operand, cout, (D, H, W), "dhwc",
-                                                     stats=False)[:1]
-            B, D, C, H, W = x.shape
-            return conv_common.launch_conv_stats(name, x, operand, cout,
-                                                 (D // stride, H // stride, W // stride))
+            out = tuple(x.shape[a] // stride for a in dhw_axes)
+            got = conv_common.launch_conv_stats(name, x, operand, cout, out, layout,
+                                                stats=kind == "stats")
+            return got if kind == "stats" else got[:1]
         finally:
             conv_common._bound[name] = ours
 
@@ -189,11 +204,11 @@ def main(argv=None) -> int:
             *x_shape, Cout = shape
             x = torch.randn(x_shape, generator=gen, device=dev).to(torch.bfloat16)
             xo = _at_odd_offset(x)
-            C = x_shape[4] if ndhwc else x_shape[2]
+            C = x_shape[c_axis]
             if dw:
                 B, D, _, H, W = x_shape
-                g = torch.randn((B, D // 2, Cout, H // 2, W // 2), generator=gen, device=dev
-                                ).to(torch.bfloat16)
+                g = torch.randn((B, D // stride, Cout, H // stride, W // stride), generator=gen,
+                                device=dev).to(torch.bfloat16)
                 go = _at_odd_offset(g)
                 want = run(other, x, g, Cout)
                 runs = [("aligned", ours, x, g), ("odd x", ours, xo, g), ("odd g", ours, x, go),

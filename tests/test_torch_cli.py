@@ -387,16 +387,27 @@ def test_debug_raises_on_a_non_finite_model(trained, tmp_path):
     assert not torch.is_anomaly_enabled()
 
 
-def test_device_lanes_above_one_exit(trained, tmp_path):
+def test_device_lanes_above_one_exit(trained, tmp_path, monkeypatch):
+    """--device-lanes N takes the first N local devices of --device's kind
+    and exits with the JAX package's message when fewer are present (the
+    CPU is one device; CUDA counts its cards); N = 1 serves on one lane."""
+    from runet_tpu_torch.cli import _resolve_lanes
+
     data, run = trained
+    fewer = r"--device-lanes 2: only 1 local device\(s\) present"
     for cmd in (["predict", "--data", str(data), "--out", str(tmp_path / "p")],
                 ["evaluate", "--data", str(data)],
                 ["serve", "--watch", str(data), "--out", str(tmp_path / "s"), "--once"],
                 ["warmup", "--coarse", str(run), "--shape", "8", "8", "8"]):
-        with pytest.raises(SystemExit, match="Queue A item 7"):
+        with pytest.raises(SystemExit, match=fewer):
             main([*CPU, *cmd, "--fine", str(run), "--device-lanes", "2"])
-    main([*CPU, "predict", "--data", str(data), "--fine", str(run), "--out",
-          str(tmp_path / "one"), "--device-lanes", "1"])
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(SystemExit, match=fewer):
+        _resolve_lanes(2, "cuda")
+    assert _resolve_lanes(1, "cuda") == [torch.device("cuda", 0)]
+    assert _resolve_lanes(0, "cuda") is None
+    main([*CPU, "predict", "--data", str(data), "--fine", str(run), "--coarse", str(run),
+          "--out", str(tmp_path / "one"), "--device-lanes", "1"])
     assert (tmp_path / "one" / "case_00000.nii.gz").exists()
 
 

@@ -593,3 +593,20 @@ def test_bit_compare_exits_nonzero_without_cuda(no_cuda, tmp_path):
     out = tmp_path / "bits.json"
     assert bit_compare.main([str(tmp_path / "conv3x3_stats.cu"), "--out", str(out)]) != 0
     assert not out.exists()
+
+
+def test_bit_compare_covers_the_eight_conv_kernels():
+    """Rows 1-8: every conv source under csrc/ is one of bit_compare's
+    kernels, each with its kind and layout; the v1 kernel's lines and
+    default shapes are in its own (B, D, H, C, W) order."""
+    from runet_tpu_torch.kernels import build
+    from runet_tpu_torch.utils import bit_compare
+
+    convs = {p.stem for p in build.CSRC.glob("conv3x3_*.cu")}
+    assert set(bit_compare.KERNELS) == convs and len(convs) == 8
+    assert {k for k, (kind, _, _) in bit_compare.SPEC.items() if kind == "dw"} == {
+        "conv3x3_dw", "conv3x3_s2_dw"}
+    assert bit_compare.SPEC["conv3x3_stats_v1"][1] == "dhcw"
+    assert bit_compare.SPEC["conv3x3_ndhwc_stats"] == ("stats", "dhwc", 1)
+    log = "[kernels] conv3x3_stats_v1 train_renal x(2, 64, 32, 64, 64)->64 x4: err 0.01\n"
+    assert bit_compare.logged_shapes(log, "conv3x3_stats_v1") == [(2, 64, 32, 64, 64, 64)]

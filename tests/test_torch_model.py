@@ -137,12 +137,17 @@ def test_unet_rejects_indivisible_input():
 
 
 def test_unet_rejects_spatial_axis():
-    """The reference all-reduces the InstanceNorm moments over
-    ``spatial_axis``; the port has no spatial partitioning yet, so a config
-    that sets it raises instead of normalising each shard on its own."""
-    with pytest.raises(NotImplementedError, match="spatial_axis='space'"):
-        UNet3D(ModelConfig(base_features=4, num_levels=2, spatial_axis="space"), device="cpu")
-    assert UNet3D(ModelConfig(base_features=4, num_levels=2), device="cpu").cfg.spatial_axis is None
+    """With ``spatial_axis`` set every norm all-reduces its moments over the
+    process group bound to that mesh axis (as the reference's ``pmean``); a
+    forward with no group bound raises instead of normalising each shard on
+    its own, and the model without the axis runs."""
+    model = UNet3D(ModelConfig(base_features=4, num_levels=2, spatial_axis="space"), device="cpu")
+    assert {m.axis_name for m in model.modules() if isinstance(m, InstanceNorm)} == {"space"}
+    with pytest.raises(RuntimeError, match="no process group is bound to mesh axis 'space'"):
+        model(torch.zeros((1, 8, 8, 8, 1)))
+    dense = UNet3D(ModelConfig(base_features=4, num_levels=2), device="cpu")
+    assert dense.cfg.spatial_axis is None
+    assert dense(torch.zeros((1, 8, 8, 8, 1))).shape == (1, 8, 8, 8, 3)
 
 
 def test_bench_loader_agrees_on_artifact_values():

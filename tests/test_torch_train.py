@@ -292,8 +292,9 @@ def test_validate_full_and_config_errors(tmp_path):
     with pytest.raises(ValueError, match="divisible"):
         train(tiny_config(steps_per_dispatch=4), cases=cases, device="cpu",
               out_dir=tmp_path / "r2", log_every=6)
-    # Multi-device data parallelism is the one request that still raises.
-    with pytest.raises(NotImplementedError):
+    # A data-parallel mesh is a torch.distributed DeviceMesh
+    # (parallel.comm.make_mesh); anything else is refused.
+    with pytest.raises(TypeError, match="DeviceMesh"):
         train(tiny_config(), cases=cases, device="cpu", out_dir=tmp_path / "r3", mesh=object())
     assert create_train_model(ModelConfig(remat=True, base_features=4, num_levels=2),
                               device="cpu").remat
