@@ -27,7 +27,22 @@ Phases (any failure exits non-zero; nothing is caught and printed over):
    voxel for voxel, both reports' volumetry ``volumetry`` of it; the
    stride-1 and stride-2 kernels and the same native calls must have run
    between the first request and the last, and no attic kernel;
-3b. cli: the command line, ``runet_tpu_torch.cli.main`` in-process at full
+3b. api: the port's public counterparts of the JAX package's functions
+   at full width: ``preprocess_case`` of a 512x512x160 phantom (integer HU)
+   at 0.78125x0.78125x3 mm to the fine_kits spacing, the card against the
+   CPU (API_CPU_TOL) and against the cascade's own staging from the f16
+   upload and from the fine_kits uint8 upload of the window-clipped case
+   (``_staging_bound``); ``pad_volume`` of a 112x100x72 crop around a
+   kidney to the 128³ patch and ``sliding_window_predict`` of the committed
+   fine_kits U-Net on it, labels equal to one forward on the explicitly
+   padded volume cropped back (counts set to 0 just before, read after:
+   rows 1 and 2 launched, no attic kernel); the ``resample_to_shape``
+   round trip native → 0.8 mm → native of a smooth volume within
+   ROUNDTRIP_BOUND; ``depth_to_space_3d`` ``torch.equal`` to
+   ``depth_to_space_dchw`` at the decoder's widths; ``instance_norm_reference``
+   against the model's InstanceNorm in f32 at every level's width
+   (NORM_REF_TOL);
+3c. cli: the command line, ``runet_tpu_torch.cli.main`` in-process at full
    width: ``phantom`` (two 512x512x160 cases), ``predict`` (the pipelined
    cascade with the committed coarse and fine_kits weights, saved with
    their configs by ``utils/export.py``), ``evaluate --surface``, ``serve
@@ -43,7 +58,7 @@ Phases (any failure exits non-zero; nothing is caught and printed over):
    be the mean of the run's two retained checkpoints; rows 1 and 2 must
    launch in each serving command and rows 1, 3 and 4 in training (dw
    launches exact), no attic kernel, and the native tier's calls made;
-3c. serve, renal_anatomy: the committed coarse and renal_anatomy (5 classes)
+3d. serve, renal_anatomy: the committed coarse and renal_anatomy (5 classes)
    weights, once per ``fused_kernel`` in ("v2m", "v2", "v1"): ``warmup_cases``
    (seconds printed), ``predict_case`` on the 5-class 192x192x64 phantom
    (seed 13, vessel radius 2.5) gated on Dice (kidney_composite > 0.93,
@@ -137,7 +152,7 @@ Phases (any failure exits non-zero; nothing is caught and printed over):
    every one of the ten kernels must have launched, and every row must
    carry a finite positive ms for each kernel it names;
 9. kernel vs plain: each kernel on random inputs at every distinct shape
-   the serve, cli, train, parallel and kernel-bench phases launched it with,
+   the serve, api, cli, train, parallel and kernel-bench phases launched it with,
    against its
    plain version on the same inputs, with timings (``utils/latency.py``'s
    ``chained_ms``) of kernel, plain version and the library yardstick
@@ -620,6 +635,200 @@ def phase_serve_http(dev, coarse, fine, cascade):
     for name in (fused_block.SOURCE, strided_conv.SOURCE):
         if counts[name] <= 0:
             raise AssertionError(f"serve_http: kernel {name} was not launched")
+    return counts, shapes
+
+
+# The api phase's shapes and bounds. A crop of the preprocessed case under
+# the 128³ patch on every axis, around the first kidney (the phantom puts it
+# at 0.30 x, 0.45 y, 0.50 z of the volume).
+API_CROP = (112, 100, 72)
+API_CPU_TOL = 1e-4  # preprocess_case card vs CPU (tests/test_torch_api_parity.py's JAX bound)
+ROUNDTRIP_BOUND = 0.05  # tests/test_resample.py::test_roundtrip_native_iso_native_error_bound
+NORM_REF_TOL = 1e-4  # the model's single-pass f32 InstanceNorm against the two-pass oracle
+
+
+def _staging_bound(pp, out_shape, scale) -> float:
+    """Largest |cascade staging - preprocess_case| on integer HU inside what
+    the upload keeps: the cascade's interpolation positions and weights are
+    f32 (off by a few f32 ulps of the largest position, 3 axes) where
+    ``preprocess_case``'s are f64, each weight error times a jump of at most
+    2000 HU between neighbours; a uint8 upload adds half a quantization
+    step. In normalized units."""
+    max_pos = max((o - 1) * float(s) for o, s in zip(out_shape, scale))
+    hu = 2000.0 * 3 * max_pos * 2.0 ** -23
+    if pp.transfer_quant:
+        lo, hi = pp.hu_window
+        hu += (hi - lo) / 255.0 / 2.0
+    return hu / pp.hu_stats[1] + 1e-5
+
+
+def phase_api(dev, fm):
+    """The port's public counterparts of the JAX package's API on the card:
+    ``preprocess_case`` of a KiTS-scale phantom to the fine_kits spacing
+    against the same call on the CPU and against the cascade's own staging;
+    ``pad_volume`` + ``sliding_window_predict`` of the fine_kits U-Net
+    (``fm``, the committed weights) on a crop under the patch, labels equal
+    to one forward on the explicitly padded volume, cropped back (counts set
+    to 0 just before, read after: rows 1 and 2 launched, no attic kernel);
+    the ``resample_to_shape`` round trip native → iso → native;
+    ``depth_to_space_3d`` against ``depth_to_space_dchw`` at the decoder's
+    widths; ``instance_norm_reference`` against the model's InstanceNorm in
+    f32. Returns the launch counts and shapes."""
+    from runet_tpu_torch.config import get_config
+    from runet_tpu_torch.data.phantom import make_phantom
+    from runet_tpu_torch.infer import cascade
+    from runet_tpu_torch.infer.sliding_window import pad_volume, sliding_window_predict
+    from runet_tpu_torch.kernels import fused_block, strided_conv
+    from runet_tpu_torch.models.norm import InstanceNorm, instance_norm_reference
+    from runet_tpu_torch.models.unet3d import (
+        depth_to_space_3d,
+        depth_to_space_dchw,
+        level_features,
+    )
+    from runet_tpu_torch.preprocess.normalize import preprocess_case
+    from runet_tpu_torch.preprocess.resample import (
+        output_shape_for_spacing,
+        resample_to_shape,
+        resample_to_spacing,
+    )
+
+    t_phase = time.monotonic()
+    fcfg = get_config("fine_kits")
+    pp = fcfg.preprocess
+    img, seg = make_phantom(CASE_SHAPE, CASE_SPACING, num_classes=3, seed=0)
+    img = np.rint(img)  # integer HU, as a CT volume stores it
+
+    # preprocess_case: the card against the CPU, then against the cascade's
+    # staging (f32 runtime positions from the f16 upload, and from the
+    # fine_kits uint8 upload on the case clipped to the HU window, where
+    # clipping before the resample is clipping after it).
+    args = (CASE_SPACING, pp.spacing, pp.hu_window, pp.hu_stats)
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    x = preprocess_case(torch.from_numpy(img).to(dev), *args)
+    torch.cuda.synchronize()
+    card_s = time.monotonic() - t0
+    t0 = time.monotonic()
+    x_cpu = preprocess_case(torch.from_numpy(img), *args)
+    cpu_s = time.monotonic() - t0
+    out_shape = output_shape_for_spacing(CASE_SHAPE, CASE_SPACING, pp.spacing)
+    if tuple(x.shape) != out_shape or x.dtype != torch.float32 or not torch.isfinite(x).all():
+        raise AssertionError(f"preprocess_case: {tuple(x.shape)} {x.dtype}, want {out_shape}")
+    err = (x.cpu() - x_cpu).abs().max().item()
+    log(f"[api] preprocess_case {CASE_SHAPE} at {CASE_SPACING} -> {out_shape} at {pp.spacing}: "
+        f"card {card_s:.3f} s, CPU {cpu_s:.3f} s, max |card - CPU| {err:.3g} "
+        f"(tolerance {API_CPU_TOL})")
+    if not err <= API_CPU_TOL:
+        raise AssertionError(f"preprocess_case: card and CPU differ by {err}")
+    del x_cpu
+    scale = np.asarray([d / s for s, d in zip(CASE_SPACING, pp.spacing)], np.float32)
+    for tag, stage_pp, image in (
+            ("f16 upload", dataclasses.replace(pp, transfer_quant=False), img),
+            ("uint8 upload (fine_kits), window-clipped case", pp, np.clip(img, *pp.hu_window))):
+        want = x if image is img else preprocess_case(torch.from_numpy(image).to(dev), *args)
+        with torch.inference_mode():
+            got = cascade._stage_resample_in(cascade._upload(image, stage_pp, dev), out_shape,
+                                             scale, stage_pp)
+        err = (got - want).abs().max().item()
+        bound = _staging_bound(stage_pp, out_shape, scale)
+        log(f"[api] preprocess_case vs the cascade's staging, {tag}: max |Δ| {err:.3g} "
+            f"(bound {bound:.3g})")
+        if not err <= bound:
+            raise AssertionError(f"preprocess_case and the cascade's staging differ by {err}")
+        del got, want
+
+    # pad_volume + sliding_window_predict on a crop under the patch.
+    patch = tuple(fcfg.infer.patch_size)
+    c = [int(round(f * n)) for f, n in zip((0.30, 0.45, 0.50), out_shape)]
+    lo = [ci - s // 2 for ci, s in zip(c, API_CROP)]
+    crop = x[lo[0]:lo[0] + API_CROP[0], lo[1]:lo[1] + API_CROP[1], lo[2]:lo[2] + API_CROP[2]]
+    crop = crop.contiguous()
+    del x
+    pad_value = crop.min()
+    reset_counts()
+    torch.cuda.synchronize()
+    with launch_shapes() as shapes, torch.inference_mode():
+        t0 = time.monotonic()
+        padded, padded_shape = pad_volume(crop, patch, pad_value)
+        labels = sliding_window_predict(
+            cascade.module_apply, fm, padded, patch_size=patch, num_classes=3,
+            overlap=fcfg.infer.overlap, sigma_scale=fcfg.infer.sigma_scale,
+            window_batch=fcfg.infer.window_batch,
+            single_pass_ratio=fcfg.infer.single_pass_ratio)
+        labels = labels[:API_CROP[0], :API_CROP[1], :API_CROP[2]]
+        torch.cuda.synchronize()
+        sw_s = time.monotonic() - t0
+        ref = torch.full(patch, float(pad_value), device=dev)
+        ref[:API_CROP[0], :API_CROP[1], :API_CROP[2]] = crop
+        logits = fm(ref[None, ..., None])[0]
+        want = torch.argmax(torch.softmax(logits.float(), dim=-1), dim=-1).to(torch.uint8)
+        want = want[:API_CROP[0], :API_CROP[1], :API_CROP[2]]
+        torch.cuda.synchronize()
+    counts = kernel_counts()
+    if padded_shape != patch or not torch.equal(padded, ref):
+        raise AssertionError(f"pad_volume: {padded_shape} differs from the explicit padding")
+    if not torch.equal(labels, want):
+        raise AssertionError(f"pad_volume + sliding_window_predict differs from the forward on "
+                             f"the padded volume on {int((labels != want).sum())} voxels")
+    n_kidney = int((labels == 1).sum())
+    log(f"[api] pad_volume {API_CROP} -> {padded_shape}, sliding_window_predict {sw_s:.3f} s: "
+        f"labels equal to the padded forward cropped back on all {labels.numel()} voxels "
+        f"(classes {torch.bincount(labels.flatten().long(), minlength=3).tolist()})")
+    log(f"[api] kernel launches in the window pass and its reference: {counts}")
+    no_attic(counts, "api")
+    for name in (fused_block.SOURCE, strided_conv.SOURCE):
+        if counts[name] <= 0:
+            raise AssertionError(f"api: kernel {name} was not launched")
+    if n_kidney == 0:
+        raise AssertionError("api: no kidney voxel in a crop around the kidney")
+    del padded, ref, logits, crop
+
+    # resample_to_shape: native → iso → native on a smooth volume.
+    g = [torch.arange(n, dtype=torch.float32, device=dev) for n in CASE_SHAPE]
+    smooth = (torch.sin(g[0] / 5)[:, None, None] + torch.cos(g[1] / 7)[None, :, None]
+              + (g[2] / 16.0)[None, None, :])
+    iso = resample_to_spacing(smooth, CASE_SPACING, pp.spacing)
+    back = resample_to_shape(iso, CASE_SHAPE, pp.spacing, CASE_SPACING)
+    rt = (back - smooth).abs().mean().item()
+    log(f"[api] resample_to_shape round trip {CASE_SHAPE} -> {tuple(iso.shape)} -> "
+        f"{tuple(back.shape)}: mean |error| {rt:.4g} (bound {ROUNDTRIP_BOUND})")
+    if tuple(back.shape) != CASE_SHAPE or not rt < ROUNDTRIP_BOUND:
+        raise AssertionError(f"resample_to_shape round trip: {tuple(back.shape)}, {rt}")
+    del smooth, iso, back
+
+    # depth_to_space_3d at the decoder's widths (batch 2, 128³ patch).
+    feats = level_features(fcfg.model)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    for lvl in range(len(feats) - 1):
+        s = patch[0] // 2 ** (lvl + 1)
+        xs = torch.randn((2, s, s, s, 8 * feats[lvl]), generator=gen, device=dev
+                         ).to(torch.bfloat16)
+        got = depth_to_space_3d(xs, 2)
+        want = depth_to_space_dchw(xs.permute(0, 1, 4, 2, 3), 2).permute(0, 1, 3, 4, 2)
+        if not torch.equal(got, want):
+            raise AssertionError(f"depth_to_space_3d differs from depth_to_space_dchw at "
+                                 f"{tuple(xs.shape)}")
+    log(f"[api] depth_to_space_3d torch.equal to depth_to_space_dchw at decoder levels "
+        f"0-{len(feats) - 2} ({[8 * f for f in feats[:-1]]} channels)")
+
+    # instance_norm_reference against the model's InstanceNorm in f32.
+    worst = 0.0
+    for lvl, f in enumerate(feats):
+        s = patch[0] // 2 ** lvl
+        xs = torch.randn((2, s, s, s, f), generator=gen, device=dev) * 2 + 0.5
+        norm = InstanceNorm(f, dtype=torch.float32, device=dev)
+        with torch.no_grad():
+            norm.scale.copy_(torch.randn(f, generator=gen, device=dev))
+            norm.bias.copy_(torch.randn(f, generator=gen, device=dev))
+            got = norm(xs, channel_axis=-1)
+        want = instance_norm_reference(xs, norm.scale, norm.bias)
+        worst = max(worst, (got - want).abs().max().item())
+    log(f"[api] instance_norm_reference vs InstanceNorm (f32) at fine_kits widths {feats}: "
+        f"max |Δ| {worst:.3g} (tolerance {NORM_REF_TOL})")
+    if not worst <= NORM_REF_TOL:
+        raise AssertionError(f"instance_norm_reference differs from InstanceNorm by {worst}")
+    torch.cuda.empty_cache()
+    log(f"[api] phase wall {time.monotonic() - t_phase:.1f} s")
     return counts, shapes
 
 
@@ -2401,8 +2610,8 @@ def kernel_lines(measured, path_counts):
     ``timed_ms_by_path`` splits ``ms`` by the path that first launched the
     shape); ``path_ms`` weighs each shape's time by its launches on that
     path; ``launches`` is over every path driven (the four main paths, the
-    HTTP entry point, the command line, the parallel path and the kernel
-    bench, split in ``launches_by_path``; the bench's count the
+    HTTP entry point, the api phase's window pass, the command line, the
+    parallel path and the kernel bench, split in ``launches_by_path``; the bench's count the
     kernels its CUDA graphs replayed). ``max_abs_err`` also covers the
     attic phase's untimed cases. ``library_ms`` is null where no single
     library call computes the kernel's function (the instance-norm apply
@@ -2536,6 +2745,7 @@ def main() -> int:
     serve_counts, serve_shapes, fine, bundles = phase_serve(dev)
     http_counts, http_shapes = phase_serve_http(dev, *bundles)
     del bundles
+    api_counts, api_shapes = phase_api(dev, fine)
     try:
         cli_counts, cli_shapes = phase_cli(dev)
     finally:
@@ -2565,7 +2775,8 @@ def main() -> int:
         torch.cuda.empty_cache()
         bench_counts, bench_shapes = phase_kernel_bench(dev)
         measured = phase_kernels(dev, {"serve": serve_shapes, "serve_http": http_shapes,
-                                       "cli": cli_shapes, "train": train_shapes,
+                                       "api": api_shapes, "cli": cli_shapes,
+                                       "train": train_shapes,
                                        "serve_renal": renal_shapes,
                                        "train_renal": rtrain_shapes,
                                        "parallel": parallel_shapes,
@@ -2575,7 +2786,8 @@ def main() -> int:
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
     kernels = kernel_lines(measured, {"serve": serve_counts, "serve_http": http_counts,
-                                      "cli": cli_counts, "train": train_counts,
+                                      "api": api_counts, "cli": cli_counts,
+                                      "train": train_counts,
                                       "serve_renal": renal_counts,
                                       "train_renal": rtrain_counts,
                                       "parallel": parallel_counts,

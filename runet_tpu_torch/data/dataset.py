@@ -21,7 +21,7 @@ import torch
 from runet_tpu_torch import resolve_device
 from runet_tpu_torch.config import PreprocessConfig
 from runet_tpu_torch.io.nifti import load_volume
-from runet_tpu_torch.preprocess.normalize import normalize
+from runet_tpu_torch.preprocess.normalize import preprocess_case
 from runet_tpu_torch.preprocess.resample import output_shape_for_spacing, resample
 
 # Foreground coordinates kept per class (a seeded random subset beyond it).
@@ -78,7 +78,7 @@ def prepare_case(rec: CaseRecord, pp: PreprocessConfig, device=None) -> Prepared
     scale = tuple(d / s for s, d in zip(native_spacing, pp.spacing))
 
     x = torch.from_numpy(np.array(vol.data, np.float32)).to(dev)
-    img = normalize(resample(x, out_shape, scale, method="linear"), pp.hu_window, pp.hu_stats)
+    img = preprocess_case(x, native_spacing, pp.spacing, pp.hu_window, pp.hu_stats)
     img = img.cpu().numpy().astype(np.float32)
 
     labels = None

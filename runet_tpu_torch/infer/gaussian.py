@@ -4,6 +4,8 @@ centre, sigma = patch size x sigma_scale, strictly positive (counterpart of
 
 from __future__ import annotations
 
+from functools import lru_cache
+
 import numpy as np
 import torch
 
@@ -16,6 +18,19 @@ def _axes(patch_size, sigma_scale):
         x = np.arange(n, dtype=np.float64)
         axes.append(np.exp(-0.5 * ((x - center) / sigma) ** 2))
     return axes
+
+
+@lru_cache(maxsize=32)
+def gaussian_importance_map(patch_size: tuple[int, int, int], sigma_scale: float = 0.125,
+                            dtype=np.float32) -> np.ndarray:
+    """(X, Y, Z) host map in ``dtype``: the outer product of the three 1-D
+    factors in f64 over its maximum, floored at its smallest positive value.
+    Cached: every caller gets the same array."""
+    a, b, c = _axes(patch_size, sigma_scale)
+    out = a[:, None, None] * b[None, :, None] * c[None, None, :]
+    out = out / out.max()
+    out = np.maximum(out, out[out > 0].min() if (out > 0).any() else 1e-8)
+    return out.astype(dtype)
 
 
 def gaussian_importance_map_device(patch_size: tuple[int, int, int],

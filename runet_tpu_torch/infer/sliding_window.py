@@ -75,13 +75,18 @@ def expand_window_size(
             return tuple(win)
 
 
-def _pad_to(vol: torch.Tensor, shape, pad_value) -> torch.Tensor:
-    """Pad the spatial dims of (X, Y, Z, C) at the high end up to ``shape``
-    with the constant ``pad_value``."""
-    px, py, pz = (max(0, p - s) for s, p in zip(vol.shape[:3], shape))
-    if not (px or py or pz):
-        return vol
-    return F.pad(vol, (0, 0, 0, pz, 0, py, 0, px), value=float(pad_value))
+def pad_volume(vol: torch.Tensor, patch_size: tuple[int, int, int],
+               pad_value) -> tuple[torch.Tensor, tuple[int, int, int]]:
+    """Pad the spatial dims of an (X, Y, Z) or (X, Y, Z, C) volume at the
+    high end up to at least ``patch_size`` with the constant ``pad_value``;
+    returns the volume (``vol`` itself when no axis is short) and its
+    spatial shape."""
+    pads = [max(0, p - s) for s, p in zip(vol.shape[:3], patch_size)]
+    if any(pads):
+        px, py, pz = pads
+        spec = (0, pz, 0, py, 0, px) if vol.dim() == 3 else (0, 0, 0, pz, 0, py, 0, px)
+        vol = F.pad(vol, spec, value=float(pad_value))
+    return vol, tuple(vol.shape[:3])
 
 
 def _single_pass(apply_fn, params, volume: torch.Tensor):
@@ -139,15 +144,14 @@ def sliding_window_predict(
     div = min(32, min(patch_size))
     div32 = tuple(-(-s // div) * div for s in orig)
     if single_pass_ratio > 0 and np.prod(div32) <= single_pass_ratio * np.prod(patch_size):
-        v = _pad_to(vol, div32, pad_value)
+        v, _ = pad_volume(vol, div32, pad_value)
         labels, probs = _single_pass(apply_fn, params, v.float())
     else:
         win = tuple(patch_size)
         if expand_windows and single_pass_ratio > 0:
             win = expand_window_size(orig, tuple(patch_size), single_pass_ratio,
                                      grow=2 * div, div=div)
-        v = _pad_to(vol, win, pad_value)
-        padded = tuple(v.shape[:3])
+        v, padded = pad_volume(vol, win, pad_value)
         if win == tuple(patch_size):
             starts = make_start_table(padded, win, overlap, window_batch)
         else:

@@ -67,3 +67,20 @@ class InstanceNorm(nn.Module):
         if self.affine:
             y = y * self.scale.float().reshape(bshape[1:]) + self.bias.float().reshape(bshape[1:])
         return y.to(self.dtype)
+
+
+def instance_norm_reference(x: torch.Tensor, scale=None, bias=None,
+                            eps: float = 1e-5) -> torch.Tensor:
+    """The f32 oracle of the InstanceNorm of an NDHWC ``x``: two-pass mean
+    and variance over the spatial axes (1, 2, 3), then ``scale`` and
+    ``bias`` (broadcast over the last axis, as f32 on ``x``'s device) where
+    given."""
+    xf = x.float()
+    mean = xf.mean(dim=(1, 2, 3), keepdim=True)
+    var = torch.square(xf - mean).mean(dim=(1, 2, 3), keepdim=True)
+    y = (xf - mean) / torch.sqrt(var + eps)
+    if scale is not None:
+        y = y * torch.as_tensor(scale, dtype=torch.float32, device=x.device)
+    if bias is not None:
+        y = y + torch.as_tensor(bias, dtype=torch.float32, device=x.device)
+    return y

@@ -132,9 +132,19 @@ class EncoderBlock(nn.Module):
         return _pair_dchw(self.ConvNormAct_0, self.ConvNormAct_1, x)
 
 
+def depth_to_space_3d(x: torch.Tensor, r: int = 2) -> torch.Tensor:
+    """(B, D, H, W, r³·F) → (B, rD, rH, rW, F), the NDHWC pixel shuffle,
+    with channel order c = ((rd·r + rh)·r + rw)·F + f."""
+    B, D, H, W, C = x.shape
+    f = C // (r * r * r)
+    x = x.reshape(B, D, H, W, r, r, r, f)
+    x = x.permute(0, 1, 4, 2, 5, 3, 6, 7)  # (B, D, rd, H, rh, W, rw, F)
+    return x.reshape(B, D * r, H * r, W * r, f)
+
+
 def depth_to_space_dchw(x: torch.Tensor, r: int = 2) -> torch.Tensor:
-    """(B, D, r³·F, H, W) → (B, rD, F, rH, rW) with channel order
-    c = ((rd·r + rh)·r + rw)·F + f, as the JAX package assigns it."""
+    """(B, D, r³·F, H, W) → (B, rD, F, rH, rW) with the channel order of
+    ``depth_to_space_3d``, as the JAX package assigns it."""
     B, D, C, H, W = x.shape
     f = C // (r * r * r)
     x = x.reshape(B, D, r, r, r, f, H, W)

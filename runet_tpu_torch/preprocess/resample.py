@@ -77,11 +77,18 @@ def resample(x: torch.Tensor, out_shape: tuple[int, int, int], scale: tuple[floa
     return x
 
 
+def resample_to_shape(x: torch.Tensor, out_shape: tuple[int, int, int], src_spacing,
+                      dst_spacing, method: str = "linear") -> torch.Tensor:
+    """Resample into an exact ``out_shape`` (e.g. back to the native grid)
+    with the spacing ratio dst/src as the scale, on ``x``'s device."""
+    scale = tuple(d / s for s, d in zip(src_spacing, dst_spacing))
+    return resample(x, tuple(out_shape), scale, method)
+
+
 def resample_to_spacing(x: torch.Tensor, src_spacing, dst_spacing,
                         method: str = "linear") -> torch.Tensor:
     out_shape = output_shape_for_spacing(tuple(x.shape), src_spacing, dst_spacing)
-    scale = tuple(d / s for s, d in zip(src_spacing, dst_spacing))
-    return resample(x, out_shape, scale, method)
+    return resample_to_shape(x, out_shape, src_spacing, dst_spacing, method)
 
 
 def resample_labels_onehot(labels: torch.Tensor, out_shape: tuple[int, int, int],
