@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from runet_tpu_torch.preprocess.resample import matrix_from_positions
+from runet_tpu_torch.utils.timing import count
 
 # Isotropic zoom factors; 1.0 keeps the identity in distribution. A factor
 # above 1 samples a wider input extent (content shrinks, edge-clamped).
@@ -89,10 +90,12 @@ def apply_rot90(img, lab, k: int):
 
 def apply_zoom(img, lab, index: int, factors=ZOOM_FACTORS):
     """Trilinear zoom of the image, nearest of the labels, by
-    ``factors[index]`` about the center of each axis."""
+    ``factors[index]`` about the center of each axis. Each axis uploads its
+    two matrices by pageable copies, each counted in ``blocking_copies``."""
     lab_f = lab.float()
     for axis in range(3):
         lin, nst = zoom_matrix_bank(img.shape[axis], tuple(factors))
+        count("blocking_copies", 2)
         img = _zoom_axis(img, axis, torch.from_numpy(lin[index]).to(img.device))
         lab_f = _zoom_axis(lab_f, axis, torch.from_numpy(nst[index]).to(img.device))
     # Nearest matrices have one-hot rows: the values stay exact class ids.
@@ -117,8 +120,10 @@ def apply_elastic(img, lab, field: torch.Tensor, amp: float):
     """Warp img (X, Y, Z, C) trilinearly and lab (X, Y, Z) by nearest
     neighbour along the displacement ``field`` (3, g, g, g) times ``amp``
     voxels, upsampled to the volume by per-axis interpolation matrices.
-    Sampling coordinates are clamped to the volume (edge-replicate)."""
+    Sampling coordinates are clamped to the volume (edge-replicate). The
+    field and the matrices go up by pageable copies (``blocking_copies``)."""
     shape = tuple(img.shape[:3])
+    count("blocking_copies", 4)  # the field and three matrices, by pageable copies
     disp = field.to(img.device, torch.float32) * amp
     for axis in range(3):
         M = torch.from_numpy(field_upsample_matrix(shape[axis], field.shape[1 + axis]))

@@ -9,6 +9,9 @@ consumer thread copies each batch to the device with
 compute stream waits for that copy and the device tensors are recorded on
 it. No tensor made on the worker thread is used on the device by any other
 stream than that copy.
+
+Spans: ``train_loop.sample`` around each batch the worker builds (its
+thread), ``train_loop.next`` around each ``next(loader)``.
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ import torch
 from runet_tpu_torch import resolve_device
 from runet_tpu_torch.data.dataset import PreparedCase
 from runet_tpu_torch.data.sampler import sample_batch
+from runet_tpu_torch.utils.timing import span
 
 
 PREFETCH = 2
@@ -80,19 +84,24 @@ class PatchLoader:
 
     def _worker_loop(self):
         while not self._stop.is_set():
-            parts = [
-                sample_batch(self._rng, self.cases, self.batch_size, self.patch_size,
-                             self.fg_prob, image_dtype=np.float16, label_dtype=np.uint8)
-                for _ in range(self.stack_steps)
-            ]
-            if self.stack_steps > 1:
-                images, labels = (np.stack([p[j] for p in parts]) for j in range(2))
-            else:
-                images, labels = parts[0]
-            batch = (torch.from_numpy(images), torch.from_numpy(labels))
-            if self._cuda:
-                batch = tuple(t.pin_memory() for t in batch)
+            with span("train_loop.sample"):
+                batch = self._sample()
             self._put(batch)
+
+    def _sample(self):
+        parts = [
+            sample_batch(self._rng, self.cases, self.batch_size, self.patch_size,
+                         self.fg_prob, image_dtype=np.float16, label_dtype=np.uint8)
+            for _ in range(self.stack_steps)
+        ]
+        if self.stack_steps > 1:
+            images, labels = (np.stack([p[j] for p in parts]) for j in range(2))
+        else:
+            images, labels = parts[0]
+        batch = (torch.from_numpy(images), torch.from_numpy(labels))
+        if self._cuda:
+            batch = tuple(t.pin_memory() for t in batch)
+        return batch
 
     def __iter__(self) -> Iterator:
         return self
@@ -111,6 +120,10 @@ class PatchLoader:
             return item
 
     def __next__(self):
+        with span("train_loop.next"):
+            return self._next()
+
+    def _next(self):
         host = self._get()
         if not self._cuda:
             return tuple(t.to(self.device) for t in host)

@@ -55,7 +55,8 @@ from runet_tpu_torch.preprocess.resample import (
     resample_labels_onehot_dynamic,
 )
 from runet_tpu_torch.utils.native import native_paste_crumbs, native_paste_nibbles
-from runet_tpu_torch.utils.timing import PhaseTimer
+from runet_tpu_torch.utils import timing
+from runet_tpu_torch.utils.timing import PhaseTimer, span
 
 
 @dataclasses.dataclass
@@ -144,7 +145,10 @@ def _dequant4(x: torch.Tensor, hu_window: tuple[float, float], in_z: int) -> tor
 
 
 def _upload(image: np.ndarray, pp: PreprocessConfig, device) -> torch.Tensor:
-    return torch.from_numpy(_to_transfer_dtype(np.ascontiguousarray(image), pp)).to(device)
+    with span("preprocess.quantize"):
+        host = torch.from_numpy(_to_transfer_dtype(np.ascontiguousarray(image), pp))
+    with span("wait.upload"):  # pageable: waits for the device's queue
+        return host.to(device)
 
 
 def _stage_resample_in(up: torch.Tensor, out_shape, scale, pp: PreprocessConfig,
@@ -208,7 +212,9 @@ def _labels_to_native(labels: torch.Tensor, native_shape, scale_fn, num_classes:
     native = resample_labels_onehot_dynamic(
         labels.to(torch.int32), tuple(int(s) for s in native_shape),
         np.asarray(scale_fn, np.float32), num_classes).to(torch.uint8)
-    packed = _pack_labels(native, num_classes).cpu().numpy()
+    packed = _pack_labels(native, num_classes)
+    with span("wait.fetch"):
+        packed = packed.cpu().numpy()
     return _unpack_labels(packed, num_classes, int(native_shape[2]))
 
 
@@ -269,8 +275,10 @@ def _coarse_stage_core(apply_fn, params, x: torch.Tensor) -> torch.Tensor:
     shape = x.shape
     div32 = tuple(-(-s // 32) * 32 for s in shape)
     if div32 != tuple(shape):
+        with span("wait.scalar"):
+            air = float(x.min())
         x = F.pad(x, (0, div32[2] - shape[2], 0, div32[1] - shape[1], 0, div32[0] - shape[0]),
-                  value=float(x.min()))
+                  value=air)
     labels, _ = _single_pass(apply_fn, params, x[..., None])
     return pack_bits(labels[: shape[0], : shape[1], : shape[2]] > 0)
 
@@ -334,7 +342,7 @@ def _predict_case(coarse, fine, image, native_spacing, cascade, postprocess, tim
     c_pp = coarse.preprocess
 
     # ---- coarse localization ----
-    with t.phase("coarse_preprocess"):
+    with t.phase("coarse_preprocess"), span("preprocess.coarse_input"):
         # Host-side integer striding before upload: localization tolerates
         # the aliasing and the upload shrinks by the stride product.
         stride = np.maximum((c_sp // n_sp).astype(int), 1)
@@ -358,18 +366,28 @@ def _predict_case(coarse, fine, image, native_spacing, cascade, postprocess, tim
             and np.prod([-(-s // 32) * 32 for s in c_run_shape])
             <= coarse.infer.single_pass_ratio * np.prod(coarse.infer.patch_size)
         )
-    with t.phase("coarse_predict", sync=dev):
+    # The mask's fetch waits for the coarse stage's device work.
+    with t.phase("coarse_predict"):
         in_z = int(strided.shape[-1]) if c_pp.transfer_quant and c_pp.transfer_quant4 else None
         if c_single:
-            x = _stage_resample_in(_upload(strided, c_pp, dev), c_run_shape, c_scale, c_pp, in_z)
-            mask = unpack_bits(_coarse_stage_core(coarse_apply, coarse.params, x).cpu().numpy(),
-                               c_run_shape[2])
+            with span("case.coarse_enqueue"):
+                x = _stage_resample_in(_upload(strided, c_pp, dev), c_run_shape, c_scale, c_pp,
+                                       in_z)
+                packed = _coarse_stage_core(coarse_apply, coarse.params, x)
+            with span("wait.fetch"):
+                packed = packed.cpu().numpy()
+            mask = unpack_bits(packed, c_run_shape[2])
         else:
-            vol = _stage_resample_in(_upload(strided, c_pp, dev), c_out_shape, c_scale, c_pp, in_z)
-            mask = (_predict_stage(coarse, vol).cpu().numpy() > 0).astype(np.uint8)
+            with span("case.coarse_enqueue"):
+                vol = _stage_resample_in(_upload(strided, c_pp, dev), c_out_shape, c_scale, c_pp,
+                                         in_z)
+                labels = _predict_stage(coarse, vol)
+            with span("wait.fetch"):
+                labels = labels.cpu().numpy()
+            mask = (labels > 0).astype(np.uint8)
         mask = mask[: c_out_shape[0], : c_out_shape[1], : c_out_shape[2]]
 
-    with t.phase("coarse_boxes"):
+    with t.phase("coarse_boxes"), span("host_post.boxes"):
         boxes = component_bounding_boxes(mask, max_components=cascade.max_components,
                                          min_voxels=8)
 
@@ -391,7 +409,7 @@ def _predict_case(coarse, fine, image, native_spacing, cascade, postprocess, tim
     def dispatch_rois(entries):
         """Queue the device work of 1..B staged same-bucket ROIs."""
         padded = entries[0][4]
-        with t.phase("roi_predict"):
+        with t.phase("roi_predict"), span("case.roi_enqueue"):
             if len(entries) == 1:
                 lo_, hi_, wb_, crop_, _ = entries[0]
                 packed = _roi_program(fine_apply, fine, _upload(crop_, f_pp, dev), padded,
@@ -405,47 +423,50 @@ def _predict_case(coarse, fine, image, native_spacing, cascade, postprocess, tim
                     roi_results.append((lo_, hi_, wb_, packed, i))
 
     for lo_c, hi_c in boxes:
-        # coarse voxel → mm → NATIVE voxel, plus margin.
-        lo = np.floor(lo_c * c_sp / n_sp).astype(int) - margin_vox
-        hi = np.ceil(hi_c * c_sp / n_sp).astype(int) + margin_vox
-        # Cap the ROI's physical extent (centred).
-        max_vox = np.maximum((cascade.roi_max_mm / n_sp).astype(int), 1)
-        over = np.maximum(hi - lo - max_vox, 0)
-        lo = lo + over // 2
-        hi = hi - (over - over // 2)
-        lo = np.maximum(lo, 0)
-        hi = np.minimum(hi, image.shape)
-        if np.any(hi <= lo):
-            continue
+        with span("case.roi_stage"):  # box arithmetic, native crop, edge pad
+            # coarse voxel → mm → NATIVE voxel, plus margin.
+            lo = np.floor(lo_c * c_sp / n_sp).astype(int) - margin_vox
+            hi = np.ceil(hi_c * c_sp / n_sp).astype(int) + margin_vox
+            # Cap the ROI's physical extent (centred).
+            max_vox = np.maximum((cascade.roi_max_mm / n_sp).astype(int), 1)
+            over = np.maximum(hi - lo - max_vox, 0)
+            lo = lo + over // 2
+            hi = hi - (over - over // 2)
+            lo = np.maximum(lo, 0)
+            hi = np.minimum(hi, image.shape)
+            if np.any(hi <= lo):
+                continue
 
-        # Bucket the FINE grid, then grow the native crop so the bucketed
-        # grid is filled with real context.
-        fine_exact = output_shape_for_spacing(tuple(int(s) for s in (hi - lo)),
-                                              native_spacing, tuple(f_sp))
-        padded_shape = _bucket_up(fine_exact, cascade.roi_bucket)
-        scale_nf_t = tuple(f / n for n, f in zip(n_sp, f_sp))
-        # Native extent whose corner-aligned resample covers the padded fine
-        # grid without edge clamping: (p-1)*scale <= want-1.
-        want = np.asarray([int(np.ceil((p - 1) * s)) + 1 for p, s in zip(padded_shape, scale_nf_t)])
-        cb = max(1, int(cascade.crop_bucket))
-        want_buf = -(-want // cb) * cb
-        # Place the exact covered window first (symmetric growth to want);
-        # the bucket buffer is a pure suffix of context / edge pad.
-        extra = np.maximum(want - (hi - lo), 0)
-        lo = np.maximum(lo - extra // 2, 0)
-        lo = np.minimum(lo, np.maximum(np.asarray(image.shape) - want, 0))
-        hi = np.minimum(lo + want, image.shape)
-        hi_buf = np.minimum(lo + want_buf, image.shape)
-        native_boxes.append((lo.copy(), hi.copy()))
-        crop = image[lo[0]: hi_buf[0], lo[1]: hi_buf[1], lo[2]: hi_buf[2]]
-        if np.any(hi_buf - lo < want_buf):
-            crop = np.pad(crop, [(0, int(w - (h - l))) for w, l, h in zip(want_buf, lo, hi_buf)],
-                          mode="edge")
-        single_pass = (
-            fine.infer.single_pass_ratio > 0
-            and np.prod(padded_shape) <= fine.infer.single_pass_ratio * np.prod(fine.infer.patch_size)
-        )
-        want_buf_t = tuple(int(w) for w in want_buf)
+            # Bucket the FINE grid, then grow the native crop so the bucketed
+            # grid is filled with real context.
+            fine_exact = output_shape_for_spacing(tuple(int(s) for s in (hi - lo)),
+                                                  native_spacing, tuple(f_sp))
+            padded_shape = _bucket_up(fine_exact, cascade.roi_bucket)
+            scale_nf_t = tuple(f / n for n, f in zip(n_sp, f_sp))
+            # Native extent whose corner-aligned resample covers the padded fine
+            # grid without edge clamping: (p-1)*scale <= want-1.
+            want = np.asarray([int(np.ceil((p - 1) * s)) + 1
+                               for p, s in zip(padded_shape, scale_nf_t)])
+            cb = max(1, int(cascade.crop_bucket))
+            want_buf = -(-want // cb) * cb
+            # Place the exact covered window first (symmetric growth to want);
+            # the bucket buffer is a pure suffix of context / edge pad.
+            extra = np.maximum(want - (hi - lo), 0)
+            lo = np.maximum(lo - extra // 2, 0)
+            lo = np.minimum(lo, np.maximum(np.asarray(image.shape) - want, 0))
+            hi = np.minimum(lo + want, image.shape)
+            hi_buf = np.minimum(lo + want_buf, image.shape)
+            native_boxes.append((lo.copy(), hi.copy()))
+            crop = image[lo[0]: hi_buf[0], lo[1]: hi_buf[1], lo[2]: hi_buf[2]]
+            if np.any(hi_buf - lo < want_buf):
+                crop = np.pad(crop, [(0, int(w - (h - l)))
+                                     for w, l, h in zip(want_buf, lo, hi_buf)], mode="edge")
+            single_pass = (
+                fine.infer.single_pass_ratio > 0
+                and np.prod(padded_shape)
+                <= fine.infer.single_pass_ratio * np.prod(fine.infer.patch_size)
+            )
+            want_buf_t = tuple(int(w) for w in want_buf)
         if single_pass:
             entry = (lo, hi, want_buf_t, crop, tuple(int(p) for p in padded_shape))
             if roi_batch > 1:
@@ -458,7 +479,7 @@ def _predict_case(coarse, fine, image, native_spacing, cascade, postprocess, tim
             else:
                 dispatch_rois([entry])
             continue
-        with t.phase("roi_predict"):
+        with t.phase("roi_predict"), span("case.roi_enqueue"):
             roi = _stage_resample_in(_upload(crop, f_pp, dev), padded_shape, scale_nf, f_pp)
             native = resample_labels_onehot_dynamic(
                 _predict_stage(fine, roi).to(torch.int32), tuple(crop.shape), scale_fn,
@@ -478,21 +499,24 @@ def _predict_case(coarse, fine, image, native_spacing, cascade, postprocess, tim
             # A batched group is fetched once and indexed per sample.
             host = fetched_memo.get(id(dev_packed))
             if host is None:
-                host = fetched_memo[id(dev_packed)] = dev_packed.cpu().numpy()
+                with span("wait.fetch"):
+                    host = fetched_memo[id(dev_packed)] = dev_packed.cpu().numpy()
             if bidx is not None:
                 host = host[bidx]
-            # One native pass over the packed bytes (nonzero lanes overwrite,
-            # as np.where below); the numpy chain only without the tier.
-            if _native_paste_packed(native_canvas, host, lo, hi - lo, fine.num_classes):
-                continue
-            fetched = _unpack_labels(host, fine.num_classes, want_buf[2])
-            crop_labels = fetched[: hi[0] - lo[0], : hi[1] - lo[1], : hi[2] - lo[2]]
-            dst = native_canvas[lo[0]: hi[0], lo[1]: hi[1], lo[2]: hi[2]]
-            native_canvas[lo[0]: hi[0], lo[1]: hi[1], lo[2]: hi[2]] = np.where(
-                crop_labels > 0, crop_labels, dst)
+            with span("host_post.paste"):
+                # One native pass over the packed bytes (nonzero lanes
+                # overwrite, as np.where below); the numpy chain only
+                # without the tier.
+                if _native_paste_packed(native_canvas, host, lo, hi - lo, fine.num_classes):
+                    continue
+                fetched = _unpack_labels(host, fine.num_classes, want_buf[2])
+                crop_labels = fetched[: hi[0] - lo[0], : hi[1] - lo[1], : hi[2] - lo[2]]
+                dst = native_canvas[lo[0]: hi[0], lo[1]: hi[1], lo[2]: hi[2]]
+                native_canvas[lo[0]: hi[0], lo[1]: hi[1], lo[2]: hi[2]] = np.where(
+                    crop_labels > 0, crop_labels, dst)
 
     if postprocess and native_boxes:
-        with t.phase("postprocess_cc"):
+        with t.phase("postprocess_cc"), span("host_post.keep_largest"):
             native_canvas = keep_largest_components_in_boxes(
                 native_canvas, native_boxes, max_components=cascade.max_components,
                 inplace=True)
@@ -534,7 +558,13 @@ def predict_cases(
     (``bundle_on_device``; a lane on the bundles' own device shares their
     modules). Cases share nothing, so lanes need no collectives. With
     ``devices`` set, ``workers`` is the lane count and ``device`` is not
-    read."""
+    read.
+
+    Each case records a ``serving.case`` span (trace: its number in this
+    call) from being pulled from ``cases`` to its labels being yielded,
+    with ``serving.queue`` (submitted to a lane taken), ``serving.run``
+    (its ``predict_case`` on the lane's thread) and ``serving.hold`` (done
+    to yielded: the in-order wait) beneath it."""
     import queue
     from collections import deque
     from concurrent.futures import ThreadPoolExecutor
@@ -545,18 +575,30 @@ def predict_cases(
         free.put(lane)
     workers = len(lanes)
 
-    def run_one(img, sp):
+    def run_one(n, case_id, submitted_ns, img, sp):
         dev, c_d, f_d = free.get()
+        timing.record("serving.queue", submitted_ns, timing.now_ns(), trace=n, parent=case_id)
         try:
-            return predict_case(c_d, f_d, img, sp, cascade, postprocess, device=dev)
+            with span("serving.run", trace=n, parent=case_id):
+                labels = predict_case(c_d, f_d, img, sp, cascade, postprocess, device=dev)
+            return labels, timing.now_ns()
         finally:
             free.put((dev, c_d, f_d))
 
+    def finish(n, case_id, pulled_ns, future):
+        labels, done_ns = future.result()
+        yielded_ns = timing.now_ns()
+        timing.record("serving.hold", done_ns, yielded_ns, trace=n, parent=case_id)
+        timing.record("serving.case", pulled_ns, yielded_ns, trace=n, span_id=case_id)
+        return labels
+
     with ThreadPoolExecutor(max_workers=workers) as pool:
         inflight: deque = deque()
-        for img, sp in cases:
-            inflight.append(pool.submit(run_one, img, sp))
+        for n, (img, sp) in enumerate(cases):
+            pulled_ns, case_id = timing.now_ns(), timing.new_id()
+            inflight.append((n, case_id, pulled_ns,
+                             pool.submit(run_one, n, case_id, pulled_ns, img, sp)))
             if len(inflight) > workers:
-                yield inflight.popleft().result()
+                yield finish(*inflight.popleft())
         while inflight:
-            yield inflight.popleft().result()
+            yield finish(*inflight.popleft())

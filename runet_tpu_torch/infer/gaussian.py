@@ -9,6 +9,8 @@ from functools import lru_cache
 import numpy as np
 import torch
 
+from runet_tpu_torch.utils.timing import span
+
 
 def _axes(patch_size, sigma_scale):
     axes = []
@@ -40,7 +42,8 @@ def gaussian_importance_map_device(patch_size: tuple[int, int, int],
     axes = _axes(patch_size, sigma_scale)
     peak = float(axes[0].max() * axes[1].max() * axes[2].max())
     floor = float(max(axes[0].min() * axes[1].min() * axes[2].min() / peak, 1e-30))
-    a, b, c = (torch.as_tensor(v / peak ** (1 / 3), dtype=torch.float32, device=device)
-               for v in axes)
+    with span("wait.upload"):  # pageable copies to a CUDA device wait for its queue
+        a, b, c = (torch.as_tensor(v / peak ** (1 / 3), dtype=torch.float32, device=device)
+                   for v in axes)
     out = a[:, None, None] * b[None, :, None] * c[None, None, :]
     return torch.clamp_min(out, floor)

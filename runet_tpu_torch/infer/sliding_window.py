@@ -14,6 +14,7 @@ import torch
 import torch.nn.functional as F
 
 from runet_tpu_torch.infer.gaussian import gaussian_importance_map_device
+from runet_tpu_torch.utils.timing import span
 
 
 def compute_window_starts(dim: int, patch: int, stride: int) -> list[int]:
@@ -85,7 +86,9 @@ def pad_volume(vol: torch.Tensor, patch_size: tuple[int, int, int],
     if any(pads):
         px, py, pz = pads
         spec = (0, pz, 0, py, 0, px) if vol.dim() == 3 else (0, 0, 0, pz, 0, py, 0, px)
-        vol = F.pad(vol, spec, value=float(pad_value))
+        with span("wait.scalar"):  # a device pad_value is read back
+            value = float(pad_value)
+        vol = F.pad(vol, spec, value=value)
     return vol, tuple(vol.shape[:3])
 
 

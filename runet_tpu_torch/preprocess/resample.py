@@ -16,6 +16,8 @@ from functools import lru_cache
 import numpy as np
 import torch
 
+from runet_tpu_torch.utils.timing import span
+
 
 def output_shape_for_spacing(
     in_shape: tuple[int, ...],
@@ -125,8 +127,10 @@ def _interp_matrix_traced(in_size: int, out_size: int, scale, method: str,
 
     Positions are f32 ``arange(out) * scale`` clamped to [0, in_size-1]. At
     the clamp edge i0 == i1 and the two weights land on the same column,
-    summing to 1."""
-    s = torch.as_tensor(scale, dtype=torch.float32, device=device)
+    summing to 1. A host ``scale`` goes to a CUDA ``device`` by a pageable
+    copy, which waits for the device's queue (the ``wait.upload`` span)."""
+    with span("wait.upload"):
+        s = torch.as_tensor(scale, dtype=torch.float32, device=device)
     pos = torch.clamp(torch.arange(out_size, dtype=torch.float32, device=device) * s,
                       0.0, float(in_size - 1))
     cols = torch.arange(in_size, dtype=torch.int64, device=device)[None, :]

@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from runet_tpu_torch.config import TrainConfig
+from runet_tpu_torch.utils.timing import span
 
 Schedule = Callable[[int], float]
 
@@ -212,7 +213,12 @@ def make_train_step(model, augment: bool = False, elastic: bool = False,
 
     ``reduce_grads(grads, aux) -> (grads, aux)`` runs between the gradient
     and the clip-and-update (data parallelism averages both over the ranks
-    there, ``parallel/dp.py``); ``grad_norm`` is then the reduced norm."""
+    there, ``parallel/dp.py``); ``grad_norm`` is then the reduced norm.
+
+    Each call records a ``train_step.step`` span (trace: ``state.step``)
+    over ``train_step.augment``, ``.forward`` (model and loss),
+    ``.backward`` (the gradient and ``reduce_grads``) and ``.update``
+    (global norm and the optimizer)."""
     from runet_tpu_torch.data.augment import augment_batch
     from runet_tpu_torch.train.losses import deep_supervised_loss, dice_ce_loss
 
@@ -222,25 +228,33 @@ def make_train_step(model, augment: bool = False, elastic: bool = False,
 
     def train_step(state: TrainState, images, labels, generators=None, seed=None,
                    sample_offset: int = 0):
+        with span("train_step.step", trace=state.step):
+            return step_body(state, images, labels, generators, seed, sample_offset)
+
+    def step_body(state, images, labels, generators, seed, sample_offset):
         images = images.float()
         labels = torch.clamp_max(labels.long(), num_classes - 1)
         if augment:
             if generators is None:
                 raise ValueError("augment=True needs the (host, device) generators")
-            images, labels = augment_batch(images, labels, *generators, elastic=elastic,
-                                           seed=seed, first_index=sample_offset)
+            with span("train_step.augment"):
+                images, labels = augment_batch(images, labels, *generators, elastic=elastic,
+                                               seed=seed, first_index=sample_offset)
         params = state.params
-        if deep:
-            logits, aux_logits = state.model(images, deep_outputs=True)
-            loss, aux = deep_supervised_loss(logits, aux_logits, labels, **loss_kwargs)
-        else:
-            loss, aux = dice_ce_loss(state.model(images), labels, **loss_kwargs)
-        grads = torch.autograd.grad(loss, params)
-        aux = {k: v.detach() for k, v in aux.items()}
-        if reduce_grads is not None:
-            grads, aux = reduce_grads(grads, aux)
-        aux["grad_norm"] = global_norm(grads)
-        state.optimizer.step(params, grads, aux["grad_norm"])
+        with span("train_step.forward"):
+            if deep:
+                logits, aux_logits = state.model(images, deep_outputs=True)
+                loss, aux = deep_supervised_loss(logits, aux_logits, labels, **loss_kwargs)
+            else:
+                loss, aux = dice_ce_loss(state.model(images), labels, **loss_kwargs)
+        with span("train_step.backward"):
+            grads = torch.autograd.grad(loss, params)
+            aux = {k: v.detach() for k, v in aux.items()}
+            if reduce_grads is not None:
+                grads, aux = reduce_grads(grads, aux)
+        with span("train_step.update"):
+            aux["grad_norm"] = global_norm(grads)
+            state.optimizer.step(params, grads, aux["grad_norm"])
         state.step += 1
         return aux
 

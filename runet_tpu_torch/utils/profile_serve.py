@@ -7,8 +7,10 @@ phantom (512x512x160 at 0.78125x0.78125x3 mm, seed 0), then for seed 1:
 times ``predict_case`` end to end (host clock around a synchronized run),
 once more with a phase timer, and once under ``torch.profiler`` to sum the
 device time per kernel and per kind of work. Prints a JSON summary (also
-written to ``--out``) with the card's name and power limit, and the native
-host tier's calls in the timed run (``utils/native.py``). Needs a GPU.
+written to ``--out``) with the card's name and power limit, the native
+host tier's calls in the timed run (``utils/native.py``), and the count
+and seconds per name of the program's spans in that run
+(``utils/timing.py``). Needs a GPU.
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ from runet_tpu_torch.infer.cascade import ModelBundle, predict_case
 from runet_tpu_torch.params import load_model
 from runet_tpu_torch.utils import native
 from runet_tpu_torch.utils.device_time import device_rows, group_device_time
+from runet_tpu_torch.utils import timing
 from runet_tpu_torch.utils.timing import PhaseTimer
 
 CASE_SHAPE = (512, 512, 160)
@@ -68,8 +71,15 @@ def main(argv=None):
     case_s = time.monotonic() - t0
     timer = PhaseTimer()
     native.reset_call_counts()
+    first = timing.new_id()
     run(timer)
     native_calls = native.call_counts()
+    spans: dict[str, list] = {}
+    for s in timing.spans():
+        if s.span_id > first:
+            n_s = spans.setdefault(s.name, [0, 0.0])
+            n_s[0] += 1
+            n_s[1] += (s.end_ns - s.start_ns) / 1e9
 
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
@@ -84,6 +94,7 @@ def main(argv=None):
         "card": card,
         "case_seconds": case_s,
         "phases_seconds": timer.as_dict(),
+        "spans_count_seconds": dict(sorted(spans.items())),
         "native_tier": native.available(),
         "native_calls": native_calls,
         "profiled_wall_seconds": prof_wall,

@@ -170,6 +170,40 @@ def test_trace_writes_a_chrome_trace(tmp_path):
     assert "matmul_span" in names
 
 
+def test_trace_writes_the_program_spans_on_their_threads(tmp_path):
+    import threading
+
+    from runet_tpu_torch.utils import timing
+    from runet_tpu_torch.utils.profiling import annotate, trace
+
+    def lane():
+        with timing.span("case.lane_span"):
+            torch.ones(32, 32) @ torch.ones(32, 32)
+
+    with trace(tmp_path / "prof"):
+        with timing.span("case.outer_span", trace=4):
+            with annotate("matmul_span"):
+                torch.ones(64, 64) @ torch.ones(64, 64)
+            t = threading.Thread(target=lane)
+            t.start()
+            t.join(timeout=30)
+    assert not t.is_alive()
+    (path,) = sorted((tmp_path / "prof").glob("trace_*.json"))
+    events = json.loads(path.read_text())["traceEvents"]
+    spans = {e["name"]: e for e in events if e.get("cat") == "program_span"}
+    assert set(spans) == {"case.outer_span", "case.lane_span"}
+    outer, lane_ev = spans["case.outer_span"], spans["case.lane_span"]
+    (mm,) = [e for e in events if e.get("name") == "matmul_span" and e.get("ph") == "X"]
+    assert outer["ph"] == "X" and outer["tid"] == mm["tid"] and outer["args"]["trace_id"] == 4
+    assert lane_ev["tid"] != outer["tid"]
+    assert lane_ev["args"]["parent_id"] is None
+    # One clock: the profiler's event lies inside the program's span around it.
+    slack = 50.0  # us
+    assert outer["ts"] - slack <= mm["ts"]
+    assert mm["ts"] + mm["dur"] <= outer["ts"] + outer["dur"] + slack
+    assert outer["ts"] <= lane_ev["ts"] <= outer["ts"] + outer["dur"]
+
+
 def test_trace_propagates_errors(tmp_path):
     from runet_tpu_torch.utils.profiling import trace
 
