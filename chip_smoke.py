@@ -5,7 +5,7 @@
 Phases (any failure exits non-zero; nothing is caught and printed over):
 
 1. report the card (name and power limit from nvidia-smi);
-2. build the ten CUDA kernels from ``runet_tpu_torch/kernels/csrc`` (one
+2. build the eleven CUDA kernels from ``runet_tpu_torch/kernels/csrc`` (one
    nvcc per source, started together) and, beside them, the native host
    tier from ``runet_tpu_torch/native/cc3d.cpp`` (g++);
 3. serve: load the committed coarse and fine_kits weights and run
@@ -149,7 +149,7 @@ Phases (any failure exits non-zero; nothing is caught and printed over):
    every main path above must have launched each 0 times): counts set to 0
    before and read after, the shape of every launch recorded, and the
    kernels that its CUDA graphs replay added to both (``replay_counting``);
-   every one of the ten kernels must have launched, and every row must
+   every one of the eleven kernels must have launched, and every row must
    carry a finite positive ms for each kernel it names;
 9. kernel vs plain: each kernel on random inputs at every distinct shape
    the serve, api, cli, train, parallel and kernel-bench phases launched it with,
@@ -177,7 +177,10 @@ Phases (any failure exits non-zero; nothing is caught and printed over):
    aligned run's y (and sums and sqs) bit for bit, and where C == Cout the
    kernel and its library yardstick are also timed in a CUDA graph
    (``scanned_ms``, the kernel bench's protocol: ``graph_ms``,
-   ``graph_library_ms``);
+   ``graph_library_ms``); the norm + LeakyReLU pass (no library call
+   computes it: ``library_ms`` null) must equal its plain version bit for
+   bit at every shape, and again on y 2 bytes off a 16-byte boundary
+   (``element_ms``);
 10. attic: the four attic kernels against their plain versions, untimed,
    at shapes the bench does not launch: the NDHWC conv at (7, 13, 29,
    5)→11 and at one shape per tile and edge (``ATTIC_CONV_CASES``: W = 16
@@ -287,10 +290,11 @@ def cuda_ms(fn, reps: int) -> float:
 
 
 def kernel_counts() -> dict[str, int]:
-    from runet_tpu_torch.kernels import fused_block, strided_conv
+    from runet_tpu_torch.kernels import fused_block, norm_act, strided_conv
     from runet_tpu_torch.kernels.attic import conv3d, conv_v3_deep, fused_norm
 
     return {fused_block.SOURCE: fused_block.launches, strided_conv.SOURCE: strided_conv.launches,
+            norm_act.SOURCE: norm_act.launches,
             fused_block.DW_SOURCE: fused_block.dw_launches,
             strided_conv.DW_SOURCE: strided_conv.dw_launches,
             fused_block.V2_SOURCE: fused_block.v2_launches,
@@ -301,9 +305,10 @@ def kernel_counts() -> dict[str, int]:
 
 
 def reset_counts() -> None:
-    from runet_tpu_torch.kernels import fused_block, strided_conv
+    from runet_tpu_torch.kernels import fused_block, norm_act, strided_conv
     from runet_tpu_torch.kernels.attic import conv3d, conv_v3_deep, fused_norm
 
+    norm_act.launches = 0
     fused_block.launches = fused_block.dw_launches = 0
     fused_block.v2_launches = fused_block.v1_launches = 0
     strided_conv.launches = strided_conv.dw_launches = 0
@@ -328,11 +333,13 @@ def launch_shapes():
     """Yields {(kernel, x shape, Cout): launches} of every kernel launch made
     inside the block (forward, dx, weight gradient, validation alike; x in
     the layout the kernel takes; for the instance-norm kernels x as the
-    caller gave it and its C in place of Cout), by wrapping the launch
-    functions that the kernel modules call; the wrappers' own counters are
-    untouched. Thread-safe: ``predict_cases`` runs cases on worker
-    threads."""
-    from runet_tpu_torch.kernels import fused_block, strided_conv
+    caller gave it and its C in place of Cout; for the norm + LeakyReLU
+    pass its C likewise, and a (B, D, H, C, W) activation as the (B, D·H,
+    C, 1, W) one that the kernel sees alike: planes of W), by wrapping the
+    launch functions that the kernel modules call; the wrappers' own
+    counters are untouched. Thread-safe: ``predict_cases`` runs cases on
+    worker threads."""
+    from runet_tpu_torch.kernels import fused_block, norm_act, strided_conv
     from runet_tpu_torch.kernels.attic import conv3d, conv_v3_deep, fused_norm
 
     seen: dict[tuple, int] = {}
@@ -357,6 +364,17 @@ def launch_shapes():
             return launch(x, *args, **kw)
         return wrapped
 
+    def planes(launch):
+        def wrapped(y, mean, sqmean, scale, bias, eps=1e-5, negative_slope=1e-2,
+                    layout="dchw"):
+            if y.dtype != torch.bfloat16:
+                raise AssertionError(f"{norm_act.SOURCE}: a {y.dtype} launch cannot be recorded")
+            B, D, a, b, W = y.shape
+            note((norm_act.SOURCE, (B, D, a, b, W) if layout == "dchw" else (B, D * a, b, 1, W),
+                  int(b if layout == "dhcw" else a)))
+            return launch(y, mean, sqmean, scale, bias, eps, negative_slope, layout)
+        return wrapped
+
     patches = [(m, "launch_conv_stats", conv(m.launch_conv_stats, lambda packed, cout, *_: cout))
                for m in (fused_block, strided_conv, conv3d, conv_v3_deep)]
     patches += [(m, "launch_conv_dw", conv(m.launch_conv_dw, lambda g: g.shape[2]))
@@ -364,7 +382,8 @@ def launch_shapes():
     patches += [(fused_norm, "instance_norm_stats",
                  norm(fused_norm.instance_norm_stats, fused_norm.STATS_SOURCE)),
                 (fused_norm, "instance_norm_lrelu_apply",
-                 norm(fused_norm.instance_norm_lrelu_apply, fused_norm.APPLY_SOURCE))]
+                 norm(fused_norm.instance_norm_lrelu_apply, fused_norm.APPLY_SOURCE)),
+                (norm_act, "norm_lrelu", planes(norm_act.norm_lrelu))]
     saved = [(m, attr, getattr(m, attr)) for m, attr, _ in patches]
     for m, attr, f in patches:
         setattr(m, attr, f)
@@ -437,16 +456,17 @@ def replay_counting(scanned, seen: dict, extra: dict):
 
 
 def phase_build():
-    from runet_tpu_torch.kernels import build, fused_block, strided_conv
+    from runet_tpu_torch.kernels import build, fused_block, norm_act, strided_conv
     from runet_tpu_torch.kernels.attic import conv3d, conv_v3_deep, fused_norm
 
     from runet_tpu_torch.utils import native
 
     t0 = time.monotonic()
-    # g++ for the host tier runs beside the ten nvcc builds.
+    # g++ for the host tier runs beside the eleven nvcc builds.
     host = threading.Thread(target=native.available)
     host.start()
-    logs = build.build([fused_block.SOURCE, strided_conv.SOURCE, fused_block.DW_SOURCE,
+    logs = build.build([fused_block.SOURCE, strided_conv.SOURCE, norm_act.SOURCE,
+                        fused_block.DW_SOURCE,
                         strided_conv.DW_SOURCE, fused_block.V2_SOURCE, fused_block.V1_SOURCE,
                         conv3d.SOURCE, conv_v3_deep.SOURCE, fused_norm.STATS_SOURCE,
                         fused_norm.APPLY_SOURCE])
@@ -544,7 +564,7 @@ def phase_serve(dev):
         raise AssertionError(f"quality gate failed: {m}")
     log(f"[serve] kernel launches in this phase: {counts}")
     no_attic(counts, "serve")
-    for name in (fused_block.SOURCE, strided_conv.SOURCE):
+    for name in (fused_block.SOURCE, strided_conv.SOURCE, "norm_lrelu_planes"):
         if counts[name] <= 0:
             raise AssertionError(f"kernel {name} was not launched on the serving path")
     return counts, shapes, fm, (coarse, fine, fcfg.cascade)
@@ -1097,8 +1117,9 @@ def phase_serve_renal(dev):
             if (counts[name] > 0) != (v == version):
                 raise AssertionError(
                     f"fused_kernel={version}: {name} launched {counts[name]} times")
-        if counts["conv3x3_s2_stats"] <= 0:
-            raise AssertionError(f"fused_kernel={version}: the stride-2 kernel did not launch")
+        for name in ("conv3x3_s2_stats", "norm_lrelu_planes"):
+            if counts[name] <= 0:
+                raise AssertionError(f"fused_kernel={version}: {name} did not launch")
         no_attic(counts, f"serve-renal {version}")
         for tag, (p, s) in extras.items():
             log(f"[serve-renal] v2 with {tag}: {s:.3f} s, Dice {gate(tag, p)}")
@@ -1266,6 +1287,7 @@ def phase_train_renal(dev):
             raise AssertionError(f"{tag}: ended at step {state.step} without its checkpoint")
         want = {"conv3x3_stats": 0, "conv3x3_stats_v2": 0, "conv3x3_stats_v1": 0,
                 "conv3x3_dw": 0, "conv3x3_s2_stats": 4, "conv3x3_s2_dw": 4,
+                "norm_lrelu_planes": 0,
                 **{k: 0 for k in ATTIC}, **per_step}
         want = {k: v * steps for k, v in want.items()}
         log(f"[train-renal] {tag}: {steps} steps in {wall:.1f} s, peak device memory "
@@ -1324,7 +1346,8 @@ def phase_overfit(dev, cases):
         f"peak device memory {peak / 2**30:.2f} GiB")
     log(f"[overfit] kernel launches of one step: {one_step}")
     want = {"conv3x3_stats": 27, "conv3x3_s2_stats": 4, "conv3x3_dw": 14, "conv3x3_s2_dw": 4,
-            "conv3x3_stats_v2": 0, "conv3x3_stats_v1": 0, **{k: 0 for k in ATTIC}}
+            "conv3x3_stats_v2": 0, "conv3x3_stats_v1": 0, "norm_lrelu_planes": 0,
+            **{k: 0 for k in ATTIC}}
     if one_step != want:
         raise AssertionError(f"one step launched {one_step}, expected {want}")
     ratio = losses[-1] / losses[0]
@@ -2050,6 +2073,38 @@ def _stats_case(mod, x_shape, cout, gen, dev, version="v2m"):
             "library_ms": library_ms, "flops": flops, **_bound(flops, nbytes), **extra}
 
 
+def _norm_act_case(mod, x_shape, c, gen, dev):
+    """The norm + LeakyReLU pass against its plain version on a random bf16
+    (B, D, C, H, W) activation with its own moments: bit for bit, and again
+    on y 2 bytes off a 16-byte boundary (element loads, ``element_ms``);
+    bound: one read and one write of y and the (B, C) moments and (C,)
+    affine in f32."""
+    B, C = x_shape[0], x_shape[2]
+    y = (1.5 + 2.0 * torch.randn(x_shape, generator=gen, device=dev)).to(torch.bfloat16)
+    mean = y.float().mean(dim=(1, 3, 4))
+    sq = (y.float() * y.float()).mean(dim=(1, 3, 4))
+    scale = 1.0 + 0.2 * torch.randn((C,), generator=gen, device=dev)
+    bias = 0.3 * torch.randn((C,), generator=gen, device=dev)
+    odd = torch.empty(y.numel() + 1, dtype=y.dtype, device=dev)[1:].view(y.shape)
+    odd.copy_(y)
+    with torch.no_grad():
+        want = mod.norm_lrelu_plain(y, mean, sq, scale, bias)
+        for tag, yy in (("aligned", y), ("odd offset", odd)):
+            got = mod.norm_lrelu(yy, mean, sq, scale, bias)
+            if not torch.equal(got, want):
+                raise AssertionError(f"{mod.SOURCE} {tuple(x_shape)} ({tag}): differs from its "
+                                     f"plain version in {int((got != want).sum())} elements")
+        del got, want
+        ms = cuda_ms(lambda: mod.norm_lrelu(y, mean, sq, scale, bias), reps=20)
+        element_ms = cuda_ms(lambda: mod.norm_lrelu(odd, mean, sq, scale, bias), reps=20)
+        plain_ms = cuda_ms(lambda: mod.norm_lrelu_plain(y, mean, sq, scale, bias), reps=5)
+    N = y.numel()
+    flops = 6.0 * N
+    return {"max_abs_err": 0.0, "rel_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": None, "flops": flops, "element_ms": element_ms,
+            **_bound(flops, 4.0 * N + 8.0 * B * C + 8.0 * C, PEAK_F32_FLOPS)}
+
+
 def _at_odd_offset(t):
     """A contiguous copy of t that starts one element past a 16-byte
     boundary, so a kernel cannot take 16-byte loads from it."""
@@ -2146,7 +2201,7 @@ def phase_kernels(dev, path_shapes):
     (forward, dx and weight gradient alike; the kernel bench's launches
     too), on random inputs against its plain version, timed beside the
     plain version and the library yardstick; returns {kernel: [case, ...]}."""
-    from runet_tpu_torch.kernels import fused_block, strided_conv
+    from runet_tpu_torch.kernels import fused_block, norm_act, strided_conv
     from runet_tpu_torch.kernels.attic import conv3d, conv_v3_deep, fused_norm
 
     def variant(version):
@@ -2169,7 +2224,8 @@ def phase_kernels(dev, path_shapes):
             return norm_pairs[x_shape][which]
         return case
 
-    run = {fused_block.SOURCE: (fused_block, _stats_case),
+    run = {norm_act.SOURCE: (norm_act, _norm_act_case),
+           fused_block.SOURCE: (fused_block, _stats_case),
            fused_block.V2_SOURCE: (fused_block, variant("v2")),
            fused_block.V1_SOURCE: (fused_block, variant("v1")),
            strided_conv.SOURCE: (strided_conv, _stats_case),
@@ -2641,6 +2697,7 @@ def kernel_lines(measured, path_counts):
         "conv3x3_ndhwc_stats": "runet_tpu/kernels/attic/conv_v3_deep.py:53",
         "instance_norm_stats": "runet_tpu/kernels/attic/fused_norm.py:30",
         "instance_norm_lrelu_apply": "runet_tpu/kernels/attic/fused_norm.py:39",
+        "norm_lrelu_planes": "none: XLA's fusion of runet_tpu/models/norm.py's apply",
     }
     kernels = []
     for name, every in measured.items():
@@ -2792,8 +2849,8 @@ def main() -> int:
                                       "train_renal": rtrain_counts,
                                       "parallel": parallel_counts,
                                       "kernel_bench": bench_counts})
-    if len(kernels) != 10:
-        raise AssertionError(f"expected ten kernels, got {[k['name'] for k in kernels]}")
+    if len(kernels) != 11:
+        raise AssertionError(f"expected eleven kernels, got {[k['name'] for k in kernels]}")
     log(f"[done] total {time.monotonic() - t_start:.1f} s")
     log(card_line())
     print(json.dumps({"kernels": kernels}))

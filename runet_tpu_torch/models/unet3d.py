@@ -13,6 +13,9 @@ maps a checkpoint one key at a time.
 - Every 3x3x3 conv, at every level, runs through the fused conv+moment
   kernels (``kernels/fused_block.py`` stride 1, ``kernels/strided_conv.py``
   stride 2): CUDA kernels on the card, their plain versions on the CPU.
+  Where autograd records nothing (serving, validation), the norm's apply
+  and the LeakyReLU after each conv are one CUDA pass too
+  (``kernels/norm_act.py``); training keeps the differentiable torch chain.
   ``ModelConfig.fused_kernel`` picks the stride-1 kernel: "v2m", "v2", or
   "v1", whose blocks permute to (B, D, H, C, W) around their stride-1 convs
   as the JAX package's ``_pair_dchw`` does. Stride-2 convs take the one
@@ -38,6 +41,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from runet_tpu_torch.config import ModelConfig
+from runet_tpu_torch.kernels import norm_act
 from runet_tpu_torch.kernels.conv_common import pack_weight
 from runet_tpu_torch.kernels.fused_block import (
     VERSIONS,
@@ -46,6 +50,7 @@ from runet_tpu_torch.kernels.fused_block import (
 )
 from runet_tpu_torch.kernels.strided_conv import conv_s2_stats_dchw_batch
 from runet_tpu_torch.models.norm import InstanceNorm
+from runet_tpu_torch.utils import timing
 
 
 def _param(shape, dtype, device, param_dtype=None) -> nn.Parameter:
@@ -55,10 +60,21 @@ def _param(shape, dtype, device, param_dtype=None) -> nn.Parameter:
                         requires_grad=param_dtype is not None)
 
 
+def _fused_norm_act(y: torch.Tensor, norm: InstanceNorm) -> bool:
+    """Whether the norm and LeakyReLU after a conv run as one CUDA pass (bit
+    for bit the plain chain): y on the card, and autograd recording nothing
+    for the call (serving, validation; not the train step)."""
+    return y.is_cuda and not (torch.is_grad_enabled() and (
+        y.requires_grad or norm.scale.requires_grad or norm.bias.requires_grad))
+
+
 class ConvNormAct(nn.Module):
     """3x3x3 conv (stride 1 or 2) → InstanceNorm from the kernel's moments →
     LeakyReLU, on a (B, D, C, H, W) activation; ``layout="dhcw"`` (stride 1
-    under ``fused_kernel="v1"``) takes and returns (B, D, H, C, W)."""
+    under ``fused_kernel="v1"``) takes and returns (B, D, H, C, W). On CUDA,
+    where autograd records nothing for the call, the norm and activation
+    are one kernel (``kernels/norm_act.py``); each call adds 1 to the
+    ``norm_act.fused`` or ``norm_act.plain`` counter of the open span."""
 
     def __init__(self, cin: int, features: int, stride: int = 1,
                  negative_slope: float = 1e-2, norm_eps: float = 1e-5,
@@ -102,7 +118,17 @@ class ConvNormAct(nn.Module):
             y, mean, sqm = conv_in_stats_dhcw_batch(x, k, packed)
         else:
             y, mean, sqm = conv_in_stats_dchw_batch(x, k, packed, self.fused_kernel)
-        y = self.InstanceNorm_0(y, moments=(mean, sqm), channel_axis=3 if layout == "dhcw" else 2)
+        norm = self.InstanceNorm_0
+        if _fused_norm_act(y, norm):
+            timing.count("norm_act.fused")
+            if norm.axis_name is not None:
+                from runet_tpu_torch.parallel.comm import axis_mean
+
+                mean, sqm = axis_mean((mean, sqm), norm.axis_name)
+            return norm_act.norm_lrelu(y, mean, sqm, norm.scale.float(), norm.bias.float(),
+                                       norm.eps, self.negative_slope, layout=layout)
+        timing.count("norm_act.plain")
+        y = norm(y, moments=(mean, sqm), channel_axis=3 if layout == "dhcw" else 2)
         return F.leaky_relu(y, self.negative_slope)
 
 

@@ -1397,3 +1397,177 @@ def test_scanned_ms_captures_kernel_steps(cuda):
         assert latency.pipelined_ms(lambda t: conv3d.conv3x3x3_same(t, w), (x,), n=3) > 0
         with pytest.raises(ValueError):
             latency.scanned_ms(lambda t: t[:1], x, iters=2)
+
+
+# The fused norm + LeakyReLU pass (kernels/norm_act.py): the activations the
+# served nets hand it, (B, D, C, H, W) after each 3x3x3 conv. The coarse
+# net's 128^3 grid at base 24 (4 levels), the fine nets' 160 and 192 x 160 x
+# 256 ROIs at 32-320 (5 levels).
+NORM_ACT_SERVED_SHAPES = [
+    *[(1, 128 >> lvl, 24 << lvl, 128 >> lvl, 128 >> lvl) for lvl in range(4)],
+    *[(1, d >> lvl, c, 160 >> lvl, 256 >> lvl) for d in (160, 192)
+      for lvl, c in enumerate((32, 64, 128, 256, 320))],
+]
+
+
+def _norm_act_inputs(shape, layout, dtype, device, seed=0):
+    """y (``layout``), its f32 (mean, sqmean) over each (sample, channel)
+    and a non-trivial affine; channel 0's sqmean is set just under mean² so
+    its variance clamps at 0."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    y = (1.5 + 2.0 * torch.randn(shape, generator=gen, device=device)).to(dtype)
+    ax = 3 if layout == "dhcw" else 2
+    dims = tuple(a for a in range(1, 5) if a != ax)
+    mean = y.float().mean(dim=dims)
+    sq = (y.float() * y.float()).mean(dim=dims)
+    sq[:, 0] = mean[:, 0] * mean[:, 0] * (1 - 2.0 ** -20)
+    C = shape[ax]
+    scale = 1.0 + 0.2 * torch.randn(C, generator=gen, device=device)
+    bias = 0.3 * torch.randn(C, generator=gen, device=device)
+    return y, mean, sq, scale, bias
+
+
+def _norm_act_pair(y, mean, sq, scale, bias, layout):
+    from runet_tpu_torch.kernels import norm_act
+
+    got = norm_act.norm_lrelu(y, mean, sq, scale, bias, 1e-5, 1e-2, layout)
+    want = norm_act.norm_lrelu_plain(y, mean, sq, scale, bias, 1e-5, 1e-2, layout)
+    torch.cuda.synchronize()
+    return got, want
+
+
+@pytest.mark.parametrize("shape", NORM_ACT_SERVED_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_norm_act_kernel_equals_plain_at_served_shapes(cuda, shape):
+    with torch.inference_mode():
+        got, want = _norm_act_pair(*_norm_act_inputs(shape, "dchw", torch.bfloat16, cuda),
+                                   "dchw")
+    assert got.dtype == torch.bfloat16 and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("layout,dtype,shape", [
+    ("dhcw", torch.bfloat16, (1, 40, 40, 128, 64)),   # v1 blocks: planes of W
+    ("dhcw", torch.bfloat16, (1, 10, 10, 320, 16)),
+    ("dhcw", torch.bfloat16, (2, 3, 5, 7, 20)),       # P = 20: 8-byte vectors
+    ("dchw", torch.bfloat16, (2, 3, 7, 3, 5)),        # P = 15: element loads
+    ("dchw", torch.bfloat16, (2, 5, 24, 12, 20)),     # P = 240, B = 2
+    ("dchw", torch.float32, (2, 4, 32, 12, 20)),      # f32: 4-wide vectors
+    ("dhcw", torch.float32, (1, 3, 5, 6, 7)),
+])
+def test_norm_act_kernel_equals_plain_at_odd_shapes(cuda, layout, dtype, shape):
+    got, want = _norm_act_pair(*_norm_act_inputs(shape, layout, dtype, cuda), layout)
+    assert got.dtype == dtype and torch.equal(got, want)
+
+
+def test_norm_act_kernel_reads_an_unaligned_view(cuda):
+    """y 2 bytes off a 16-byte boundary: element loads, the same bits."""
+    y, mean, sq, scale, bias = _norm_act_inputs((1, 4, 32, 16, 64), "dchw", torch.bfloat16,
+                                                cuda)
+    flat = torch.empty(y.numel() + 1, dtype=y.dtype, device=cuda)
+    odd = flat[1:].view(y.shape)
+    odd.copy_(y)
+    got, want = _norm_act_pair(odd, mean, sq, scale, bias, "dchw")
+    assert odd.data_ptr() % 16 and torch.equal(got, want)
+
+
+def test_norm_act_kernel_is_counted_and_rejects_bad_input(cuda):
+    from runet_tpu_torch.kernels import norm_act
+
+    y, mean, sq, scale, bias = _norm_act_inputs((1, 4, 16, 8, 8), "dchw", torch.bfloat16, cuda)
+    n = norm_act.launches
+    norm_act.norm_lrelu(y, mean, sq, scale, bias)
+    assert norm_act.launches == n + 1
+    with pytest.raises(ValueError, match="contiguous"):
+        norm_act.norm_lrelu(y.transpose(3, 4), mean, sq, scale, bias)
+    with pytest.raises(TypeError):
+        norm_act.norm_lrelu(y.half(), mean, sq, scale, bias)
+    with pytest.raises(TypeError):
+        norm_act.norm_lrelu(y, mean.bfloat16(), sq, scale, bias)
+    with pytest.raises(ValueError):
+        norm_act.norm_lrelu(y, mean[:, :8].contiguous(), sq, scale, bias)
+    assert norm_act.launches == n + 1
+
+
+def test_norm_act_kernel_is_captured_in_a_cuda_graph(cuda):
+    from runet_tpu_torch.kernels import norm_act
+
+    y, mean, sq, scale, bias = _norm_act_inputs((1, 10, 320, 10, 16), "dchw", torch.bfloat16,
+                                                cuda)
+    static = y.clone()
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        norm_act.norm_lrelu(static, mean, sq, scale, bias)  # builds and loads the library
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = norm_act.norm_lrelu(static, mean, sq, scale, bias)
+    for seed in (1, 2):
+        fresh = _norm_act_inputs(y.shape, "dchw", torch.bfloat16, cuda, seed)[0]
+        static.copy_(fresh)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, norm_act.norm_lrelu_plain(fresh, mean, sq, scale, bias))
+
+
+@pytest.mark.parametrize("fused_kernel", ["v2m", "v2", "v1"])
+def test_conv_norm_act_routes_serving_to_the_pass_and_training_past_it(cuda, monkeypatch,
+                                                                     fused_kernel):
+    """Under inference_mode every ConvNormAct takes the pass (one launch and
+    one ``norm_act.fused`` each) and the logits equal the plain chain's bit
+    for bit; a train step's forward and backward take none."""
+    from runet_tpu_torch.config import ModelConfig
+    from runet_tpu_torch.kernels import norm_act
+    from runet_tpu_torch.models import unet3d
+    from runet_tpu_torch.utils import timing
+
+    cfg = ModelConfig(num_classes=3, base_features=16, num_levels=3, fused_kernel=fused_kernel)
+    gen = torch.Generator().manual_seed(0)
+    model = unet3d.init_params(unet3d.create_train_model(cfg, device=cuda), gen)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if "InstanceNorm" in name:
+                p.uniform_(0.5, 1.5) if name.endswith("scale") else p.uniform_(-0.2, 0.2)
+    blocks = sum(isinstance(m, unet3d.ConvNormAct) for m in model.modules())
+    x = torch.randn((1, 16, 24, 32, 1), generator=gen).to(cuda)
+    n = norm_act.launches
+    with torch.enable_grad(), timing.span("test.train") as s:
+        model(x).float().square().mean().backward()
+    assert s.counters == {"norm_act.plain": blocks} and norm_act.launches == n
+    with torch.inference_mode(), timing.span("test.serve") as s:
+        fused = model(x)
+    assert s.counters == {"norm_act.fused": blocks} and norm_act.launches == n + blocks
+    monkeypatch.setattr(unet3d, "_fused_norm_act", lambda y, norm: False)
+    with torch.inference_mode():
+        plain = model(x)
+    assert torch.equal(fused, plain)
+
+
+@pytest.mark.parametrize("preset,tta", [("fine_kits", False), ("renal_anatomy", True)],
+                         ids=["kits", "renal_anatomy_tta"])
+def test_served_label_maps_equal_the_plain_chain(cuda, monkeypatch, preset, tta):
+    """A KiTS-scale phantom through the cascade (the fine stage with 8-flip
+    TTA for renal_anatomy): the label map's digest with the pass equals the
+    one with every block on the plain chain."""
+    import dataclasses
+    import hashlib
+
+    from runet_tpu_torch.data.phantom import make_phantom
+    from runet_tpu_torch.infer.cascade import ModelBundle, predict_case
+    from runet_tpu_torch.models import unet3d
+    from runet_tpu_torch.params import load_model
+
+    spacing = (0.78125, 0.78125, 3.0)
+    cm, ccfg = load_model("coarse", device=cuda)
+    fm, fcfg = load_model(preset, device=cuda)
+    coarse, fine = ModelBundle.from_model(cm, ccfg), ModelBundle.from_model(fm, fcfg)
+    if tta:
+        fine = dataclasses.replace(fine, infer=dataclasses.replace(fine.infer, tta=True))
+    img, _ = make_phantom((512, 512, 160), spacing, num_classes=fcfg.model.num_classes, seed=3)
+    digests = []
+    for fused in (True, False):
+        if not fused:
+            monkeypatch.setattr(unet3d, "_fused_norm_act", lambda y, norm: False)
+        pred = predict_case(coarse, fine, img, spacing, fcfg.cascade, device=cuda)
+        assert pred.max() > 0
+        digests.append(hashlib.sha256(pred.tobytes()).hexdigest())
+    assert digests[0] == digests[1]

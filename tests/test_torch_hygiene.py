@@ -59,12 +59,12 @@ def test_only_the_multi_device_request_is_left_unported():
 def test_every_kernel_module_names_a_source_that_exists():
     """Each ``*SOURCE`` a kernel module names is a ``.cu`` under csrc/, and
     every ``.cu`` there is named by one (no orphan, no missing kernel): the
-    six of the model's path and the four of the attic."""
-    from runet_tpu_torch.kernels import build, fused_block, strided_conv
+    seven of the model's path and the four of the attic."""
+    from runet_tpu_torch.kernels import build, fused_block, norm_act, strided_conv
     from runet_tpu_torch.kernels.attic import conv3d, conv_v3_deep, fused_norm
 
-    mods = (fused_block, strided_conv, conv3d, conv_v3_deep, fused_norm)
+    mods = (fused_block, strided_conv, norm_act, conv3d, conv_v3_deep, fused_norm)
     named = {v for mod in mods for k, v in vars(mod).items()
              if k.endswith("SOURCE") and isinstance(v, str)}
     on_disk = {p.stem for p in build.CSRC.glob("*.cu")}
-    assert named == on_disk and len(named) == 10
+    assert named == on_disk and len(named) == 11

@@ -71,11 +71,13 @@ def test_doctor_report_has_its_keys(no_cuda):
 
 
 def test_chip_smoke_launch_shapes_records_every_kernel_module(monkeypatch):
-    """chip_smoke's ``launch_shapes`` wraps the launch functions of all ten
-    kernels (the attic modules' too), keys each launch by (kernel, x shape,
-    Cout or C) and puts the functions back afterwards."""
+    """chip_smoke's ``launch_shapes`` wraps the launch functions of all
+    eleven kernels (the attic modules' too), keys each launch by (kernel, x
+    shape, Cout or C; the norm + LeakyReLU pass's (B, D, H, C, W) launch as
+    the (B, D·H, C, 1, W) one the kernel sees alike) and puts the functions
+    back afterwards."""
     import chip_smoke
-    from runet_tpu_torch.kernels import fused_block, strided_conv
+    from runet_tpu_torch.kernels import fused_block, norm_act, strided_conv
     from runet_tpu_torch.kernels.attic import conv3d, conv_v3_deep, fused_norm
 
     def stub(*args, **kw):
@@ -84,6 +86,7 @@ def test_chip_smoke_launch_shapes_records_every_kernel_module(monkeypatch):
     attrs = [(m, "launch_conv_stats") for m in (fused_block, strided_conv, conv3d, conv_v3_deep)]
     attrs += [(m, "launch_conv_dw") for m in (fused_block, strided_conv)]
     attrs += [(fused_norm, "instance_norm_stats"), (fused_norm, "instance_norm_lrelu_apply")]
+    attrs += [(norm_act, "norm_lrelu")]
     for m, attr in attrs:
         monkeypatch.setattr(m, attr, stub)
     x = torch.zeros((1, 4, 5, 6, 8), dtype=torch.bfloat16)
@@ -97,10 +100,15 @@ def test_chip_smoke_launch_shapes_records_every_kernel_module(monkeypatch):
         fused_norm.instance_norm_lrelu_apply(x, None, None, None, None)
         with pytest.raises(AssertionError):
             fused_norm.instance_norm_stats(x.float())
+        norm_act.norm_lrelu(x, None, None, None, None)
+        norm_act.norm_lrelu(x, None, None, None, None, 1e-5, 1e-2, layout="dhcw")
+        with pytest.raises(AssertionError):
+            norm_act.norm_lrelu(x.float(), None, None, None, None)
     shape = (1, 4, 5, 6, 8)
     assert seen == {(conv3d.SOURCE, shape, 11): 2, (conv_v3_deep.SOURCE, shape, 40): 1,
                     (fused_block.SOURCE, shape, 7): 1, (strided_conv.DW_SOURCE, shape, 9): 1,
-                    (fused_norm.STATS_SOURCE, shape, 8): 1, (fused_norm.APPLY_SOURCE, shape, 8): 1}
+                    (fused_norm.STATS_SOURCE, shape, 8): 1, (fused_norm.APPLY_SOURCE, shape, 8): 1,
+                    (norm_act.SOURCE, shape, 5): 1, (norm_act.SOURCE, (1, 20, 6, 1, 8), 6): 1}
     assert all(getattr(m, attr) is stub for m, attr in attrs)
 
 

@@ -16,7 +16,7 @@ from runet_tpu_torch.utils import profile_serve, profile_train
 
 CSRC = Path(__file__).resolve().parents[1] / "runet_tpu_torch" / "kernels" / "csrc"
 GLOBAL = re.compile(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?(\w+)\s*\(")
-OWN = re.compile(r"^(conv3x3_\w+|reduce_splits|reduce_moments)$")
+OWN = re.compile(r"^(conv3x3_\w+|reduce_splits|reduce_moments|norm_lrelu_planes_kernel)$")
 
 
 def _global_names():
@@ -30,7 +30,7 @@ def _own_symbols():
         script = mod.__name__.rsplit(".", 1)[1]
         for _, subs in mod.GROUPS:
             out += [(script, s) for s in subs if s.startswith(("conv3x3_", "reduce_splits",
-                                                               "reduce_moments"))]
+                                                               "reduce_moments", "norm_lrelu_"))]
     return out
 
 
